@@ -1,0 +1,130 @@
+#!/usr/bin/env python3
+"""Where the time of the port's image-driven frame step goes, on one card.
+
+    python3 scripts/profile_torch_slice.py [--out F]
+
+Runs the flagship slice of ``chip_smoke.py`` (16 agents, 480x640 frames,
+flagship dims) and reports, per frame: the CUDA-event time of its three stages
+(tracker, IMU batch, visual update), and from a ``torch.profiler`` trace of
+a few frames the device-busy time (sum of kernel times), the device idle
+share of the wall time and the number of kernel launches, with the top
+kernels by device time. Prints the JSON (and writes it to ``--out`` when
+given). Needs a CUDA card.
+"""
+import argparse
+import json
+import os
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+from x_multi_agent_torch import configs  # noqa: E402
+from x_multi_agent_torch.ekf import ekf as ekf_mod  # noqa: E402
+from x_multi_agent_torch.utils.scene import orbit_dataset  # noqa: E402
+from x_multi_agent_torch.vio import pipeline, vio  # noqa: E402
+from x_multi_agent_torch.vision import tracker  # noqa: E402
+
+H, W = 480, 640
+AGENTS = 16
+WARM = 8  # warm-up frames
+FRAMES = 16  # frames timed with CUDA events
+TRACED = 3  # frames under the profiler
+
+
+def _device_us(event) -> float:
+    """Device time of one profiler event (the attribute was renamed across
+    torch versions)."""
+    for attr in ("device_time", "cuda_time", "self_device_time_total"):
+        if hasattr(event, attr):
+            return float(getattr(event, attr))
+    raise AttributeError("profiler event has no device time")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", help="also write the JSON to this file")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_slice: needs a CUDA card", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    a = AGENTS
+    n = WARM + FRAMES + TRACED
+    frames, (times, seqs, w_ms, a_ms) = orbit_dataset(a, n, H, W, dev)
+    params = configs.flagship_params()
+    tparams = configs.flagship_tracker(params.cfg.tracks.n_matches)
+    cam = configs.flagship_camera(H, W)
+    fs, slots = vio.init_at_time(params, 0.0, a, dev)
+    tstate = tracker.TrackerState.zero(tparams, a, H, W, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ekf_p = params.ekf_params
+    stages = ("tracker", "imu", "update")
+    sums = dict.fromkeys(stages, 0.0)
+
+    def step(k, timed):
+        nonlocal tstate, fs, slots
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        tstate, matches = tracker.track_frame_batch(tparams, cam, tstate, frames[k], generator=gen)
+        ev[1].record()
+        fs = ekf_mod.process_imu_batch_impl(ekf_p, fs, times[k], seqs[k], w_ms[k], a_ms[k])
+        ev[2].record()
+        meas = pipeline.FrameMeasurement.from_matches(params.cfg, matches)
+        fs, slots, _ = ekf_mod.process_update_aux_impl(
+            ekf_p, fs, times[k][:, -1],
+            lambda c, v, p, s: pipeline.visual_update(params.cfg, c, v, p, s, meas), slots,
+        )
+        ev[3].record()
+        if timed:
+            torch.cuda.synchronize()
+            for i, s in enumerate(stages):
+                sums[s] += ev[i].elapsed_time(ev[i + 1])
+
+    for k in range(WARM):
+        step(k, False)
+    for k in range(WARM, WARM + FRAMES):
+        step(k, True)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for k in range(WARM + FRAMES, n):
+            step(k, False)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.events() if e.device_type == cuda]
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + _device_us(e) / 1e3
+    busy_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    out = {
+        "card": torch.cuda.get_device_name(0),
+        "agents": a,
+        "frame_ms": {s: sums[s] / FRAMES for s in stages},
+        "traced_frames": TRACED,
+        "traced_wall_ms_per_frame": wall_ms / TRACED,
+        "device_busy_ms_per_frame": busy_ms / TRACED,
+        "device_idle_share": 1.0 - busy_ms / wall_ms,
+        "kernel_launches_per_frame": len(kernels) / TRACED,
+        "top_kernels_ms_per_frame": {k: v / TRACED for k, v in top},
+    }
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1)
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,119 @@
+"""Shared helpers of the PyTorch-port parity tests (``tests/test_torch_*.py``).
+
+Both packages get the same inputs, made from a numpy seed, and are compared
+leaf by leaf: JAX runs as the rest of the suite runs it (CPU, float64 under
+``tests/conftest.py``), the port runs on CPU tensors in float64.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from x_multi_agent_tpu.utils import scene
+from x_multi_agent_tpu.vision import image as jimg
+from x_multi_agent_tpu.vision import lk as jlk
+
+from x_multi_agent_torch.utils.convert import from_numpy, to_numpy
+
+# tier-1 runs several xdist workers on a few cores: one thread per worker
+torch.set_num_threads(1)
+
+F64 = torch.float64
+CPU = torch.device("cpu")
+
+
+def np_tree(x):
+    """JAX pytree -> the same structure with numpy leaves."""
+    return jax.tree.map(np.asarray, x)
+
+
+def stack(x, a: int):
+    """Broadcast every leaf of a single-agent JAX pytree to A agents."""
+    return jax.tree.map(lambda v: np.broadcast_to(np.asarray(v), (a,) + np.shape(v)), x)
+
+
+def to_port(x, dtype=F64):
+    """JAX state object (A-batched) -> the port's dataclass on the CPU."""
+    return from_numpy(np_tree(x), CPU, dtype)
+
+
+def t(x, dtype=None):
+    """numpy / JAX array -> CPU tensor (floats to ``dtype`` when given)."""
+    out = torch.from_numpy(np.array(x, copy=True))
+    return out.to(dtype) if dtype is not None and out.is_floating_point() else out
+
+
+def assert_tree_close(got, ref, rel: float, path: str = "state"):
+    """Compare the port's state (dataclass / tensor / NamedTuple) with the
+    reference's (numpy leaves) leaf by leaf: integer and boolean leaves
+    exactly, float leaves with atol = rel * max|ref leaf|."""
+    if isinstance(got, torch.Tensor):
+        g, r = to_numpy(got), np.asarray(ref)
+        assert g.shape == r.shape, f"{path}: shape {g.shape} != {r.shape}"
+        if r.dtype.kind == "f":
+            scale = float(np.max(np.abs(r))) if r.size else 0.0
+            np.testing.assert_allclose(g, r, rtol=0, atol=rel * scale, err_msg=path)
+        else:
+            np.testing.assert_array_equal(g, r.astype(g.dtype), err_msg=path)
+        return
+    if dataclasses.is_dataclass(got):
+        for f in dataclasses.fields(got):
+            assert_tree_close(getattr(got, f.name), getattr(ref, f.name), rel, f"{path}.{f.name}")
+        return
+    if isinstance(got, tuple):
+        for i, (g, r) in enumerate(zip(got, ref)):
+            assert_tree_close(g, r, rel, f"{path}[{i}]")
+        return
+    raise TypeError(f"{path}: cannot compare {type(got).__name__}")
+
+
+def orbit_frames(a, n, h, w, tex_size=512):
+    """Frames (n, A, h, w) float64 of the textured wall along each agent's
+    6-DoF orbit, and each frame's IMU window (times, seqs, w, a), each
+    (n, A, 10, ...): the image benchmark's orbit and IMU slicing, rendered
+    with the numpy renderer (coarser texels, so the small field of view
+    stays on the texture)."""
+    tex = scene.make_texture(0, size=tex_size)
+    frames = np.zeros((n, a, h, w))
+    trajs = []
+    for i in range(a):
+        tr = scene.orbit_traj(
+            duration=(n + 1) / 20.0, imu_rate=200.0, cam_rate=20.0, radius=1.5, omega=0.6,
+            phase=2.0 * np.pi * i / a, yaw_amp=0.15, pitch_amp=0.10, roll_amp=0.08,
+            z_amp=0.3, seed=i,
+        )
+        trajs.append(tr)
+        for k in range(n):
+            frames[k, i] = scene.render_wall_frame(
+                tex, tr["cam_p"][k], tr["cam_rot"][k], h, w, 0.8 * w, 0.8 * w, m_per_px=0.016
+            )
+    idx = np.arange(n)[:, None] * 10 + np.arange(1, 11)[None, :]  # (n, 10)
+    times = np.stack([tr["imu_t"][idx] for tr in trajs], axis=1)
+    seqs = np.broadcast_to(idx[:, None], times.shape).astype(np.int32)
+    ws = np.stack([tr["imu_w"][idx] for tr in trajs], axis=1)
+    accs = np.stack([tr["imu_a"][idx] for tr in trajs], axis=1)
+    return frames, (times, seqs, ws, accs)
+
+
+def jax_sample_indices(mask, next_id, n_hyp):
+    """The reference's hypothesis draw (ransac.py:101-106, tracker.py:202)."""
+    key = jax.random.fold_in(jax.random.PRNGKey(0), next_id)
+    probs = mask.astype(jnp.float64)
+    probs = probs / jnp.maximum(probs.sum(), 1.0)
+    return jax.random.categorical(key, jnp.log(jnp.maximum(probs, 1e-30)), shape=(n_hyp, 8))
+
+
+def jax_frame_indices(jp, state, imgs):
+    """Regenerate, per agent, the RANSAC indices the reference's
+    track_frame_batch draws inside _track_core."""
+
+    def one(s, im):
+        pp = jimg.build_pyramid(s.prev_img, jp.lk_max_level)
+        pc = jimg.build_pyramid(im, jp.lk_max_level)
+        _, ok = jlk.track(pp, pc, s.pts, (s.ids >= 0) & s.has_prev, half_win=jp.win_half,
+                          n_iters=jp.lk_iters, min_eig_thr=jp.min_eig_thr)
+        return jax_sample_indices(ok, s.next_id, jp.ransac_hypotheses)
+
+    return np.asarray(jax.vmap(one)(state, imgs))

@@ -1,0 +1,138 @@
+"""Build and load the hand-written CUDA kernels in ``csrc/``.
+
+All ``csrc/*.cu`` files are compiled by ``nvcc`` for ``sm_90a`` into ONE
+shared library with a plain C interface, loaded with ``ctypes``. The build
+happens at first use (never at import), into ``x_multi_agent_torch/_build/``,
+and is keyed by a hash of the sources and flags, so an edited kernel is
+rebuilt and an unchanged one is loaded as it is. A failed build raises with
+nvcc's stderr; there is no fallback.
+
+Each kernel's Python wrapper owns a :class:`Kernel`, which counts the
+wrapper's launches (a plain integer: the count a run reads to prove that its
+main path went through the kernel).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+)
+
+_lock = threading.Lock()
+_lib = None
+build_seconds: float | None = None  # wall time of the last nvcc build (None: loaded as built)
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.environ.get("CUDA_HOME") and os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256()
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libxmat_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` into the hashed library (no-op when present)."""
+    global build_seconds
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *[str(s) for s in CSRC.glob("*.cu")]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    build_seconds = time.perf_counter() - t0
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            cdll = ctypes.CDLL(str(build()))
+            for name, n_ptr, n_int, n_float in _SIGNATURES:
+                fn = getattr(cdll, name)
+                fn.argtypes = (
+                    [ctypes.c_void_p] * n_ptr
+                    + [ctypes.c_int] * n_int
+                    + [ctypes.c_float] * n_float
+                    + [ctypes.c_void_p]  # stream
+                )
+                fn.restype = ctypes.c_int
+            _lib = cdll
+    return _lib
+
+
+# (C symbol, #pointers, #ints, #floats) — every entry point takes its
+# pointers, then ints, then floats, then the CUDA stream, and returns
+# cudaGetLastError() after the launch
+_SIGNATURES = (
+    ("xmat_fast_score_nms", 2, 4, 1),
+    ("xmat_lk_level", 8, 6, 2),
+)
+
+
+class Kernel:
+    """Launch counter of one hand-written kernel's wrapper."""
+
+    def __init__(self, name: str, source: str, replaces: str):
+        self.name = name
+        self.source = source  # path in the repo
+        self.replaces = replaces  # file:line of the Pallas kernel it replaces
+        self.launches = 0
+
+    def launch(self, symbol: str, *args) -> None:
+        import torch
+
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib(), symbol)(*args, ctypes.c_void_p(stream))
+        if err != 0:
+            raise RuntimeError(f"{self.name}: CUDA launch failed with error {err}")
+        self.launches += 1
+
+
+def check_cuda_tensor(name: str, t, dtype, shape=None) -> None:
+    """Validate a kernel operand: CUDA, dtype, contiguity and shape."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")

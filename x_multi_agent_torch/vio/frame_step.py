@@ -1,0 +1,58 @@
+"""The image-driven frame step for a batch of agents: the tracker, then the
+per-agent filter step (IMU batch, then the match-driven visual update).
+
+This is the composition the reference's image benchmark times per frame
+(``tracker.track_frame_batch`` followed by ``ekf.process_imu_batch_impl``
+and ``ekf.process_update_aux_impl`` over ``pipeline.visual_update``); it
+adds no behaviour of its own.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..ekf import ekf as ekf_mod
+from ..vision import camera as cam_mod
+from ..vision import tracker as trk
+from . import pipeline
+from .vio import VioParams
+
+
+def frame_step(
+    params: VioParams,
+    tparams: trk.TrackerParams,
+    cam: cam_mod.Camera,
+    tstate: trk.TrackerState,
+    fs,
+    slots,
+    imgs: torch.Tensor,  # (A, H, W) frame
+    times: torch.Tensor,  # (A, L) IMU samples since the last frame
+    seqs: torch.Tensor,  # (A, L)
+    w_ms: torch.Tensor,  # (A, L, 3)
+    a_ms: torch.Tensor,  # (A, L, 3)
+    meas_time: torch.Tensor,  # (A,) frame time
+    generator: Optional[torch.Generator] = None,
+    ransac_idx: Optional[torch.Tensor] = None,
+):
+    """One frame for every agent. Returns (tstate, fs, slots, matches,
+    applied (A,)).
+
+    On CUDA tensors the filter algebra must run in full fp32: raises if
+    TF32 matmuls are on (``torch.backends.cuda.matmul.allow_tf32``). The
+    step runs no cuDNN operation, so the cuDNN flag does not matter here."""
+    if imgs.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise ValueError("frame_step needs TF32 matmuls off on CUDA "
+                         "(torch.backends.cuda.matmul.allow_tf32 = False)")
+    tstate, matches = trk.track_frame_batch(
+        tparams, cam, tstate, imgs, generator=generator, ransac_idx=ransac_idx
+    )
+    meas = pipeline.FrameMeasurement.from_matches(params.cfg, matches)
+    ekf_p = params.ekf_params
+    fs = ekf_mod.process_imu_batch_impl(ekf_p, fs, times, seqs, w_ms, a_ms)
+
+    def update_fn(core, vision, cov, slots):
+        return pipeline.visual_update(params.cfg, core, vision, cov, slots, meas)
+
+    fs, slots, applied = ekf_mod.process_update_aux_impl(ekf_p, fs, meas_time, update_fn, slots)
+    return tstate, fs, slots, matches, applied

@@ -1,0 +1,207 @@
+"""The per-frame visual update (port of ``x_multi_agent_tpu.vio.pipeline``).
+
+One fixed-shape program per camera frame, batched over agents:
+
+  track classification -> state management (remove/reparametrize/slide/
+  augment) -> [IEKF x iekf_iter] stacked MSCKF (+ merged short-MSCKF) +
+  MSCKF-SLAM + SLAM rows -> whitened compression -> Kalman update ->
+  feature initialization
+
+Everything is masked/fixed-budget; gated-out rows are zeros.
+
+Ported here: the ``merge_short_into_stack=True`` path without range or sun
+rows and without the collaboration store (``VioConfig.enable_range`` /
+``enable_sun`` raise; ``merge_short_into_stack=False`` raises).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from ..ekf.state import (
+    CoreState,
+    StateDims,
+    VisionState,
+    camera_orientation,
+    correct_core,
+    correct_vision,
+)
+from ..ops import linalg
+from ..ops.triangulation import ivd_to_world, triangulate_gn
+from . import state_manager as sm
+from . import track_manager as tm
+from .updates import msckf, msckf_slam, slam
+
+
+class VioConfig(NamedTuple):
+    """Static VIO configuration (reference defaults)."""
+
+    dims: StateDims = StateDims()
+    tracks: tm.TrackDims = tm.TrackDims()
+    q_ic: Tuple[float, float, float, float] = (0.0, 0.0, 0.0, 1.0)
+    p_ic: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    sigma_img: float = 0.005  # normalized-coordinate image noise std
+    sigma_range: float = 0.05
+    rho_0: float = 0.5
+    sigma_rho_0: float = 0.25
+    min_track_length: int = 15
+    iekf_iter: int = 1
+    tri_max_iter: int = 5  # GN-triangulation iteration cap
+    msckf_baseline_x_n: float = 0.02
+    msckf_baseline_y_n: float = 0.02
+    obs_constrained: bool = True  # Hesch OC projection in MSCKF rows
+    enable_range: bool = True
+    enable_sun: bool = True
+    merge_short_into_stack: bool = True
+
+
+class FrameMeasurement(NamedTuple):
+    """Per-frame inputs to the visual update, (A, ...) per field."""
+
+    matches: tm.Matches
+    range_value: torch.Tensor  # (A,)
+    range_img_pt: torch.Tensor  # (A, 2)
+    range_active: torch.Tensor  # (A,) bool
+    sun_angles: torch.Tensor  # (A, 2)
+    sun_active: torch.Tensor  # (A,) bool
+
+    @staticmethod
+    def from_matches(cfg: VioConfig, matches: tm.Matches) -> "FrameMeasurement":
+        a = matches.cur_pt.shape[0]
+        dtype, dev = matches.cur_pt.dtype, matches.cur_pt.device
+        z = torch.zeros((a,), dtype=dtype, device=dev)
+        f = torch.zeros((a,), dtype=torch.bool, device=dev)
+        return FrameMeasurement(
+            matches=matches, range_value=z, range_img_pt=torch.zeros((a, 2), dtype=dtype, device=dev),
+            range_active=f, sun_angles=torch.zeros((a, 2), dtype=dtype, device=dev), sun_active=f,
+        )
+
+
+def _apply_rows(cov, jac, res, std, correction_total, cov_update=True):
+    """Whiten -> (Gram-compress if rows > 2D) -> Kalman update."""
+    d = cov.shape[-1]
+    hw, rw = linalg.whiten(jac, res, std)
+    if jac.shape[-2] > 2 * d:
+        hw, rw = linalg.qr_compress(jac, res, std)
+    corr, cov1 = linalg.kalman_update(cov, hw, rw, correction_total)
+    return corr, (cov1 if cov_update else cov)
+
+
+def visual_update(
+    cfg: VioConfig,
+    core: CoreState,
+    vision: VisionState,
+    cov: torch.Tensor,
+    slots: tm.TrackSlots,
+    meas: FrameMeasurement,
+):
+    """One full visual update at the measurement state, per agent.
+    Returns (core, vision, cov, slots)."""
+    if cfg.enable_range or cfg.enable_sun:
+        raise NotImplementedError("range and sun-sensor rows are not ported")
+    if not cfg.merge_short_into_stack:
+        raise NotImplementedError("only merge_short_into_stack=True is ported")
+    dims = cfg.dims
+    m, n = dims.n_poses, dims.n_features
+    d = dims.d
+    dtype, dev = cov.dtype, cov.device
+    q_ic = torch.tensor(cfg.q_ic, dtype=dtype, device=dev)
+    p_ic = torch.tensor(cfg.p_ic, dtype=dtype, device=dev)
+
+    # ---------------- 1. track classification (pre-slide window) ----------
+    q_cur = camera_orientation(core, q_ic)
+    slots, frame, slam_z = tm.manage_tracks(
+        cfg.tracks, slots, meas.matches, vision.q_arr, q_cur, cfg.min_track_length,
+        cfg.msckf_baseline_x_n, cfg.msckf_baseline_y_n,
+        prev_pose_valid=vision.n_valid_poses >= 1,
+    )
+
+    # ---------------- 2. state management ---------------------------------
+    vision, cov, perm, n_keep = sm.manage(dims, core, vision, cov, frame.lost_slam, q_ic, p_ic)
+    slots = tm.apply_slam_compaction(slots, perm, n_keep)
+    keep_sorted = torch.arange(n, device=dev) < n_keep[:, None]
+    ar = torch.arange(perm.shape[0], device=dev)[:, None]
+    slam_z = torch.where(keep_sorted[..., None], slam_z[ar, perm.long()], 0.0)
+    slam_has_obs = torch.where(keep_sorted, frame.slam_has_obs[ar, perm.long()], False)
+    slam_len = torch.where(keep_sorted, slots.slam_length, 0)
+    cur_pose_idx = m - 1  # the window is right-aligned
+
+    # merged short rows: reindex the dead tracks' observations across the
+    # slide (old window slot k+1 -> new slot k)
+    sh_obs = torch.cat([frame.short_obs[:, :, 1:], torch.zeros_like(frame.short_obs[:, :, :1])], 2)
+    sh_mask = torch.cat(
+        [frame.short_mask[:, :, 1:], torch.zeros_like(frame.short_mask[:, :, :1])], 2
+    ) & frame.short_valid[..., None]
+    stack_obs = torch.cat([frame.msckf_obs, sh_obs], dim=1)
+    stack_mask = torch.cat([frame.msckf_mask, sh_mask], dim=1)
+    k_ms = stack_obs.shape[1]
+
+    # ---------------- 3. IEKF loop: stacked update -------------------------
+    correction_total = torch.zeros((cov.shape[0], d), dtype=dtype, device=dev)
+    new_mask_ms = frame.new_mask & frame.new_is_msckf[..., None]
+    for it in range(cfg.iekf_iter):
+        # iterations > 0 keep the it-0 measurement model frozen (triangulated
+        # point, projector, Jacobians, gates); only residuals move
+        if it == 0:
+            # one GN-triangulation chain for both track families
+            all_obs = torch.cat([stack_obs, frame.new_obs], dim=1)
+            all_mask = torch.cat([stack_mask, new_mask_ms], dim=1)
+            ivd_all, anchor_all = triangulate_gn(
+                all_obs, all_mask, vision.q_arr, vision.p_arr, max_iter=cfg.tri_max_iter
+            )
+            anc = anchor_all[:, :k_ms].long()
+            ara = torch.arange(anc.shape[0], device=dev)[:, None]
+            world_ms = ivd_to_world(ivd_all[:, :k_ms], vision.q_arr[ara, anc], vision.p_arr[ara, anc])
+            fixed_tri = (ivd_all[:, k_ms:], anchor_all[:, k_ms:])
+        else:
+            world_ms = ms_info.world
+            fixed_tri = (ms_init.features, ms_init.anchor)
+        msckf_rows, ms_info = msckf.build(
+            stack_obs, stack_mask, vision.q_arr, vision.p_arr, cov, cfg.sigma_img, n,
+            oc=cfg.obs_constrained, fixed_world=world_ms,
+        )
+        mslam_rows, ms_init = msckf_slam.build(
+            frame.new_obs, new_mask_ms, vision.q_arr, vision.p_arr, cov, cfg.sigma_img, n,
+            fixed_tri=fixed_tri,
+        )
+        slam_rows = slam.build(
+            vision.f_arr, vision.anchor_idx, vision.q_arr, vision.p_arr, slam_z,
+            slam_has_obs, torch.clamp(slam_len, max=m), cov, cur_pose_idx, cfg.sigma_img,
+        )
+        rows = [msckf_rows, mslam_rows, slam_rows]
+        jac = torch.cat([r.jac for r in rows], dim=1)
+        res = torch.cat([r.res for r in rows], dim=1)
+        std = torch.cat([r.noise_std for r in rows], dim=1)
+        have_any = (res != 0.0).any(1) | (jac != 0.0).any(2).any(1)
+        corr, cov_upd = _apply_rows(
+            cov, jac, res, std, correction_total, cov_update=(it == cfg.iekf_iter - 1)
+        )
+        # agents with no rows at all skip the update (lax.cond in the reference)
+        corr = torch.where(have_any[:, None], corr, 0.0)
+        cov = torch.where(have_any[:, None, None], cov_upd, cov)
+        core = correct_core(core, corr)
+        vision = correct_vision(vision, corr, dims)
+        correction_total = correction_total + corr
+        correction_last = corr  # increment since the LAST build
+
+    # ---------------- 4. feature initialization ---------------------------
+    ms_finite = (
+        torch.isfinite(ms_init.h2).all(-1).all(-1)
+        & torch.isfinite(ms_init.h1).all(-1).all(-1)
+        & torch.isfinite(ms_init.features).all(-1)
+    )
+    accept_ms = frame.new_valid & frame.new_is_msckf & ms_finite
+    accept_std = frame.new_valid & ~frame.new_is_msckf
+    accepted = torch.where(frame.new_is_msckf, accept_ms, accept_std)
+    n_feat_before = vision.n_valid_features
+    vision, cov = sm.init_new_features(
+        dims, vision, cov, frame.new_is_msckf, ms_init.h1, ms_init.h2, ms_init.r1,
+        ms_init.features, frame.new_obs[:, :, m - 1], accepted,
+        # (h1, h2, r1) are the LAST iteration's linearization, so dx is the
+        # last increment only
+        correction_last, cfg.sigma_img, cfg.rho_0, cfg.sigma_rho_0,
+    )
+    slots = tm.insert_new_slam_tracks(slots, frame, accepted, n_feat_before)
+    return core, vision, cov, slots
+
