@@ -4,12 +4,14 @@
     python3 scripts/profile_torch_slice.py [--out F]
 
 Runs the flagship slice of ``chip_smoke.py`` (16 agents, 480x640 frames,
-flagship dims) and reports, per frame: the CUDA-event time of its three stages
+flagship dims, each agent started at its orbit's initial state) and reports, per frame: the CUDA-event time of its three stages
 (tracker, IMU batch, visual update), and from a ``torch.profiler`` trace of
 a few frames the device-busy time (sum of kernel times), the device idle
 share of the wall time and the number of kernel launches, with the top
-kernels by device time. Prints the JSON (and writes it to ``--out`` when
-given). Needs a CUDA card.
+kernels by device time; then the same trace of one collaborative round
+(``collab.collaborative_round``, default ``CollabConfig``) of those 16
+agents. Prints the JSON (and writes it to ``--out`` when given). Needs a
+CUDA card.
 """
 import argparse
 import json
@@ -24,7 +26,8 @@ sys.path.insert(0, ROOT)
 
 from x_multi_agent_torch import configs  # noqa: E402
 from x_multi_agent_torch.ekf import ekf as ekf_mod  # noqa: E402
-from x_multi_agent_torch.utils.scene import orbit_dataset  # noqa: E402
+from x_multi_agent_torch.parallel import collab  # noqa: E402
+from x_multi_agent_torch.utils.scene import orbit_dataset, orbit_start  # noqa: E402
 from x_multi_agent_torch.vio import pipeline, vio  # noqa: E402
 from x_multi_agent_torch.vision import tracker  # noqa: E402
 
@@ -60,7 +63,8 @@ def main() -> int:
     params = configs.flagship_params()
     tparams = configs.flagship_tracker(params.cfg.tracks.n_matches)
     cam = configs.flagship_camera(H, W)
-    fs, slots = vio.init_at_time(params, 0.0, a, dev)
+    p0, v0, q0 = orbit_start(a)
+    fs, slots = vio.init_at_time(params, 0.0, a, dev, p=p0, v=v0, q=q0)
     tstate = tracker.TrackerState.zero(tparams, a, H, W, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     ekf_p = params.ekf_params
@@ -91,32 +95,47 @@ def main() -> int:
     for k in range(WARM, WARM + FRAMES):
         step(k, True)
 
+    def traced(fn, reps):
+        """Wall ms, device-busy ms and launches per call of ``fn`` under the
+        profiler, and the top kernels by device ms per call."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(reps):
+                fn(i)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        by_name = {}
+        for e in kernels:
+            by_name[e.name] = by_name.get(e.name, 0.0) + _device_us(e) / 1e3
+        busy_ms = sum(by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+        return {
+            "wall_ms": wall_ms / reps, "device_busy_ms": busy_ms / reps,
+            "device_idle_share": 1.0 - busy_ms / wall_ms, "kernel_launches": len(kernels) / reps,
+            "top_kernels_ms": {k: v / reps for k, v in top},
+        }
+
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for k in range(WARM + FRAMES, n):
-            step(k, False)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    cuda = torch.autograd.DeviceType.CUDA
-    kernels = [e for e in prof.events() if e.device_type == cuda]
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + _device_us(e) / 1e3
-    busy_ms = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    frame = traced(lambda i: step(WARM + FRAMES + i, False), TRACED)
+    ccfg = collab.CollabConfig()
+    collab.collaborative_round(params, ccfg, fs)  # warm-up
+    fused = []
+    rnd = traced(lambda i: fused.append(int(collab.collaborative_round(params, ccfg, fs)[1].sum())), 1)
+    rnd["matches_fused"] = fused[0]
     out = {
         "card": torch.cuda.get_device_name(0),
         "agents": a,
         "frame_ms": {s: sums[s] / FRAMES for s in stages},
         "traced_frames": TRACED,
-        "traced_wall_ms_per_frame": wall_ms / TRACED,
-        "device_busy_ms_per_frame": busy_ms / TRACED,
-        "device_idle_share": 1.0 - busy_ms / wall_ms,
-        "kernel_launches_per_frame": len(kernels) / TRACED,
-        "top_kernels_ms_per_frame": {k: v / TRACED for k, v in top},
+        "traced_wall_ms_per_frame": frame["wall_ms"],
+        "device_busy_ms_per_frame": frame["device_busy_ms"],
+        "device_idle_share": frame["device_idle_share"],
+        "kernel_launches_per_frame": frame["kernel_launches"],
+        "top_kernels_ms_per_frame": frame["top_kernels_ms"],
+        "collab_round": rnd,
     }
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

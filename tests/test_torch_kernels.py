@@ -1,17 +1,26 @@
 """The hand-written CUDA kernels (K1 FAST, K2 LK level) against their plain
-PyTorch versions.
+PyTorch versions, and the card's float32 collaborative round against the
+CPU's float64 one.
 
 Tests marked ``gpu`` need a CUDA card and skip without one; they run on the
 card with ``python -m pytest --noconftest -m gpu tests/test_torch_kernels.py``
 (``--noconftest``: the suite's conftest imports JAX, which the card's machine
-does not have). The CPU tests check the dispatch rule: a CPU tensor goes to
-the plain version and leaves the launch counter as it was.
+does not have; nothing here imports it). The CPU tests check the dispatch
+rule: a CPU tensor goes to the plain version and leaves the launch counter
+as it was.
 """
 import numpy as np
 import pytest
 import scipy.ndimage as ndi
 import torch
 
+from x_multi_agent_torch import configs
+from x_multi_agent_torch.ekf.state import StateDims
+from x_multi_agent_torch.parallel import collab
+from x_multi_agent_torch.utils import tree
+from x_multi_agent_torch.vio import pipeline
+from x_multi_agent_torch.vio import track_manager as tm
+from x_multi_agent_torch.vio import vio
 from x_multi_agent_torch.vision import fast, lk
 from x_multi_agent_torch.vision.image import scharr_gradients
 
@@ -146,6 +155,27 @@ def test_kernels_reject_bad_operands(cuda):
 
 
 @pytest.mark.gpu
+def test_round_and_facade_reject_tf32(cuda):
+    """The collaborative round and the facade's entries on a CUDA device
+    raise while TF32 matmuls are on, before any state is touched."""
+    params = _collab_params("float32")
+    fs, _ = vio.init_at_time(params, 0.0, 2, cuda)
+    v = vio.VIO(params, device=cuda)
+    v.init_at_time(0.0)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(ValueError, match="TF32"):
+            collab.collaborative_round(params, collab.CollabConfig(), fs)
+        for call in (lambda: v.process_imu(0.01, 0, np.zeros(3), np.zeros(3)),
+                     lambda: v.process_matches_measurement(
+                         0.01, 0, tm.Matches.zero(params.cfg.tracks, 1, device=cuda))):
+            with pytest.raises(ValueError, match="TF32"):
+                call()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.gpu
 def test_frame_step_rejects_tf32(cuda):
     from x_multi_agent_torch.vio.frame_step import frame_step
 
@@ -156,3 +186,130 @@ def test_frame_step_rejects_tf32(cuda):
             frame_step(None, None, None, None, None, None, imgs, *([None] * 5))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 480, 640), (1, 240, 320)])
+def test_fast_kernel_single_agent_matches_plain(cuda, shape):
+    """K1 at A = 1, the single-agent facade's detection shapes: exact."""
+    rng = np.random.default_rng(4)
+    imgs = torch.from_numpy(rng.integers(0, 255, size=shape).astype(np.float32)).to(cuda)
+    before = fast.K1.launches
+    got = fast.fast_score_nms(imgs, 12.0)
+    torch.cuda.synchronize()
+    assert fast.K1.launches == before + 1
+    torch.testing.assert_close(got, fast.nms3(fast.fast_score(imgs, 12.0)), rtol=0, atol=0)
+
+
+def _facade_detect_shapes(monkeypatch, device):
+    """Drive the single-agent facade's image path for one frame and return
+    the shapes its FAST dispatch saw, and the K1 launches it made."""
+    shapes = []
+    plain_dispatch = fast.fast_score_nms
+
+    def spy(imgs, *args, **kwargs):
+        shapes.append(tuple(imgs.shape))
+        return plain_dispatch(imgs, *args, **kwargs)
+
+    monkeypatch.setattr(fast, "fast_score_nms", spy)
+    h, w = 120, 160
+    params = configs.flagship_params(small=True)
+    v = vio.VIO(params, device=device)
+    v.init_at_time(0.0)
+    v.setup_tracker(configs.flagship_tracker(params.cfg.tracks.n_matches),
+                    configs.flagship_camera(h, w), h, w)
+    img, _ = _textured(np.random.default_rng(5), 1, h, w)
+    before = fast.K1.launches
+    v.process_image_measurement(0.05, 0, img[0])
+    return shapes, fast.K1.launches - before
+
+
+def test_facade_reaches_fast_dispatch_with_one_agent(monkeypatch):
+    """On the CPU the facade's frame reaches K1's dispatch with a (1, H, W)
+    batch and runs the plain version (no launch)."""
+    shapes, launched = _facade_detect_shapes(monkeypatch, torch.device("cpu"))
+    assert (1, 120, 160) in shapes and launched == 0
+
+
+@pytest.mark.gpu
+def test_facade_launches_fast_kernel_with_one_agent(cuda, monkeypatch):
+    shapes, launched = _facade_detect_shapes(monkeypatch, cuda)
+    assert (1, 120, 160) in shapes and launched >= 1
+
+
+def _collab_params(dtype: str) -> vio.VioParams:
+    """The reference's two-agent collaboration test configuration
+    (``tests/test_collab.py``), stated here without importing JAX."""
+    dims = StateDims(n_poses=8, n_features=8, buffer_size=64)
+    tracks = tm.TrackDims(n_slam=8, n_poses=8, n_opp=40, n_matches=60, n_msckf=8, n_short=6,
+                          n_new_slam=8)
+    cfg = pipeline.VioConfig(dims=dims, tracks=tracks, sigma_img=2e-3, min_track_length=5,
+                             msckf_baseline_x_n=0.01, msckf_baseline_y_n=0.01,
+                             obs_constrained=False)
+    return vio.VioParams(cfg=cfg, dtype=dtype, max_update_lag=32, sigma_dv=(0.05,) * 3,
+                         sigma_dtheta_deg=(1.0,) * 3, sigma_dbw_deg=(1.0,) * 3,
+                         sigma_dba=(0.05,) * 3)
+
+
+@pytest.fixture(scope="module")
+def two_agents():
+    """Two port agents (B 0.25 m off under a loose prior) driven 1.5 s
+    through the facade on the CPU in float64, stacked."""
+    from x_multi_agent_tpu.utils.sim import make_circle_sim  # numpy only
+
+    params = _collab_params("float64")
+    sim = make_circle_sim(duration=1.5, imu_rate=100.0, cam_rate=10.0, n_landmarks=30,
+                          match_budget=60, pixel_noise=5e-4, seed=1)
+    agents = []
+    for offset, sigma_dp in (((0.0, 0.0, 0.0), 1e-3), ((0.25, 0.0, 0.0), 0.5)):
+        v = vio.VIO(params._replace(sigma_dp=(sigma_dp,) * 3))
+        v.init_at_time(0.0, p=np.asarray(offset), v=np.array([1.8, 0.0, 0.0]))
+        imu_i = 0
+        for f, t_cam in enumerate(sim.cam_t):
+            while imu_i < len(sim.imu_t) and sim.imu_t[imu_i] <= t_cam + 1e-9:
+                v.process_imu(sim.imu_t[imu_i], imu_i, sim.imu_w[imu_i], sim.imu_a[imu_i])
+                imu_i += 1
+            v.process_matches_measurement(t_cam, f, tm.Matches.of(
+                track_id=torch.from_numpy(sim.match_id[f])[None],
+                prev_pt=torch.from_numpy(sim.match_prev[f])[None],
+                cur_pt=torch.from_numpy(sim.match_cur[f])[None],
+                valid=torch.from_numpy(sim.match_valid[f])[None]))
+        agents.append(v.fs)
+    return tree.cat(agents)
+
+
+@pytest.mark.gpu
+def test_collaborative_round_cuda_matches_cpu(cuda, two_agents):
+    """The round on the card in float32 against the CPU in float64, same
+    inputs: the fused counts exactly; covariance within 1e-4 of its max,
+    buffer and window states within 1e-4 (on the CPU float32 is within
+    ~5e-6 relative of float64 here)."""
+    fs = two_agents
+    ccfg = collab.CollabConfig(sigma_landmark=0.1, ci_slam_w=0.05, gt_match_dist=0.6,
+                               match_budget=8)
+    ref_fs, ref_n = collab.collaborative_round(_collab_params("float64"), ccfg, fs)
+    fs32 = tree.map_leaves(lambda x: (x.float() if x.is_floating_point() else x).to(cuda), fs)
+    got_fs, got_n = collab.collaborative_round(_collab_params("float32"), ccfg, fs32)
+    torch.cuda.synchronize()
+    assert torch.equal(got_n.cpu(), ref_n) and int(ref_n.sum()) > 0
+    cov_scale = float(ref_fs.cov.abs().max())
+    assert float((got_fs.cov.cpu().double() - ref_fs.cov).abs().max()) <= 1e-4 * cov_scale
+    assert float((got_fs.buffer.cpu().double() - ref_fs.buffer).abs().max()) <= 1e-4
+    for name in ("p_arr", "q_arr", "f_arr"):
+        got = getattr(got_fs.vision, name).cpu().double()
+        assert float((got - getattr(ref_fs.vision, name)).abs().max()) <= 1e-4, name
+
+
+@pytest.mark.gpu
+def test_collaborative_round_never_waits_for_the_card(cuda, two_agents):
+    """After a first round has built the per-device constants, a round runs
+    no synchronizing CUDA operation (sync debug mode "error" raises on one)."""
+    fs = tree.map_leaves(lambda x: (x.float() if x.is_floating_point() else x).to(cuda), two_agents)
+    params, ccfg = _collab_params("float32"), collab.CollabConfig()
+    collab.collaborative_round(params, ccfg, fs)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        collab.collaborative_round(params, ccfg, fs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")

@@ -108,7 +108,9 @@ def test_port_never_imports_jax():
         "from x_multi_agent_torch import configs\n"
         "from x_multi_agent_torch.vio import frame_step, vio\n"
         "from x_multi_agent_torch.vision import tracker\n"
-        "from x_multi_agent_torch.utils import convert\n"
+        "from x_multi_agent_torch.utils import collab_eval, convert\n"
+        "from x_multi_agent_torch.parallel import collab\n"
+        "from x_multi_agent_torch.vio.updates import range, solar\n"
         "p = configs.flagship_params(small=True)\n"
         "fs, slots = vio.init_at_time(p, 0.0, 2, torch.device('cpu'))\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"

@@ -15,7 +15,12 @@ from x_multi_agent_tpu.utils import scene
 from x_multi_agent_tpu.vision import image as jimg
 from x_multi_agent_tpu.vision import lk as jlk
 
+from x_multi_agent_torch.ekf.propagator import ImuNoise
+from x_multi_agent_torch.ekf.state import StateDims
 from x_multi_agent_torch.utils.convert import from_numpy, to_numpy
+from x_multi_agent_torch.vio import pipeline as tpipe
+from x_multi_agent_torch.vio import track_manager as ttm
+from x_multi_agent_torch.vio import vio as tvio
 
 # tier-1 runs several xdist workers on a few cores: one thread per worker
 torch.set_num_threads(1)
@@ -39,32 +44,49 @@ def to_port(x, dtype=F64):
     return from_numpy(np_tree(x), CPU, dtype)
 
 
+def port_params(jp) -> tvio.VioParams:
+    """The reference's ``VioParams`` -> the port's, field by field."""
+    c = jp.cfg
+    cfg = tpipe.VioConfig(**{**c._asdict(), "dims": StateDims(*c.dims),
+                             "tracks": ttm.TrackDims(*c.tracks)})
+    return tvio.VioParams(**{**jp._asdict(), "cfg": cfg, "imu_noise": ImuNoise(*jp.imu_noise)})
+
+
+def sim_matches(sim, f, dtype=F64):
+    """Frame ``f`` of a ``make_circle_sim`` run as the port's Matches (A = 1)."""
+    return ttm.Matches.of(
+        track_id=t(sim.match_id[f])[None], prev_pt=t(sim.match_prev[f], dtype)[None],
+        cur_pt=t(sim.match_cur[f], dtype)[None], valid=t(sim.match_valid[f])[None],
+    )
+
+
 def t(x, dtype=None):
     """numpy / JAX array -> CPU tensor (floats to ``dtype`` when given)."""
     out = torch.from_numpy(np.array(x, copy=True))
     return out.to(dtype) if dtype is not None and out.is_floating_point() else out
 
 
-def assert_tree_close(got, ref, rel: float, path: str = "state"):
+def assert_tree_close(got, ref, rel: float, path: str = "state", floor: float = 0.0):
     """Compare the port's state (dataclass / tensor / NamedTuple) with the
     reference's (numpy leaves) leaf by leaf: integer and boolean leaves
-    exactly, float leaves with atol = rel * max|ref leaf|."""
+    exactly, float leaves with atol = rel * max(max|ref leaf|, floor)."""
     if isinstance(got, torch.Tensor):
         g, r = to_numpy(got), np.asarray(ref)
         assert g.shape == r.shape, f"{path}: shape {g.shape} != {r.shape}"
         if r.dtype.kind == "f":
-            scale = float(np.max(np.abs(r))) if r.size else 0.0
+            scale = max(float(np.max(np.abs(r))) if r.size else 0.0, floor)
             np.testing.assert_allclose(g, r, rtol=0, atol=rel * scale, err_msg=path)
         else:
             np.testing.assert_array_equal(g, r.astype(g.dtype), err_msg=path)
         return
     if dataclasses.is_dataclass(got):
         for f in dataclasses.fields(got):
-            assert_tree_close(getattr(got, f.name), getattr(ref, f.name), rel, f"{path}.{f.name}")
+            assert_tree_close(getattr(got, f.name), getattr(ref, f.name), rel,
+                              f"{path}.{f.name}", floor)
         return
     if isinstance(got, tuple):
         for i, (g, r) in enumerate(zip(got, ref)):
-            assert_tree_close(g, r, rel, f"{path}[{i}]")
+            assert_tree_close(g, r, rel, f"{path}[{i}]", floor)
         return
     raise TypeError(f"{path}: cannot compare {type(got).__name__}")
 

@@ -21,6 +21,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..utils import tree
+from ..utils.const import constant
 from . import buffer as rb
 from .propagator import (
     ImuNoise,
@@ -44,7 +45,7 @@ class EkfParams(NamedTuple):
     max_update_lag: int = 64  # static bound on IMU steps between updates
 
     def g_vec(self, like: torch.Tensor) -> torch.Tensor:
-        return torch.tensor(self.g, dtype=like.dtype, device=like.device)
+        return constant(tuple(self.g), like.dtype, like.device)
 
 
 def _i32(x):
@@ -279,6 +280,17 @@ def process_update_aux_impl(params: EkfParams, fs: FilterState, meas_time, updat
     )
     upd = _repropagate_tail(params, upd, idx)
     return tree.where(in_window, upd, fs), tree.where(in_window, aux1, aux), in_window
+
+
+def process_update(params: EkfParams, fs: FilterState, meas_time, update_fn):
+    """:func:`process_update_aux_impl` without an auxiliary state:
+    ``update_fn(core, vision, cov) -> (core, vision, cov)``. Returns
+    (fs, applied (A,))."""
+    fs, _, applied = process_update_aux_impl(
+        params, fs, meas_time, lambda c, v, p, _: (*update_fn(c, v, p), None), None
+    )
+    return fs, applied
+
 
 
 def tail_core(fs: FilterState) -> CoreState:

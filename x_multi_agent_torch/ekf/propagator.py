@@ -16,6 +16,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops import lie
+from ..utils.const import constant
 from .state import CoreState
 
 
@@ -194,10 +195,10 @@ def continuous_matrices(e_w, e_a, q_1, noise: ImuNoise):
         [zero3, zero3, zero3, zero3, zero3],
         [zero3, zero3, zero3, zero3, zero3],
     ])
-    diag = torch.tensor(
-        [0.0] * 3 + [noise.n_a**2] * 3 + [noise.n_w**2] * 3
-        + [noise.n_bw**2] * 3 + [noise.n_ba**2] * 3,
-        dtype=q_1.dtype, device=q_1.device,
+    diag = constant(
+        (0.0,) * 3 + (noise.n_a**2,) * 3 + (noise.n_w**2,) * 3
+        + (noise.n_bw**2,) * 3 + (noise.n_ba**2,) * 3,
+        q_1.dtype, q_1.device,
     )
     return f_c, torch.diag(diag).expand(f_c.shape)
 

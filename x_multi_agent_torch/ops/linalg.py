@@ -24,6 +24,14 @@ from typing import Tuple
 import torch
 
 
+def require_fp32_matmul(device: torch.device, what: str) -> None:
+    """Raise when filter algebra would run on a CUDA ``device`` with TF32
+    matmuls on (its covariance needs full fp32)."""
+    if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        raise ValueError(f"{what} needs TF32 matmuls off on CUDA "
+                         "(torch.backends.cuda.matmul.allow_tf32 = False)")
+
+
 def symmetrize(p: torch.Tensor) -> torch.Tensor:
     return 0.5 * (p + p.transpose(-1, -2))
 

@@ -26,6 +26,12 @@ def chi2_quantile_table(confidence: float, max_dof: int, dtype, device) -> torch
     return torch.as_tensor(_table_np(confidence, max_dof).copy(), dtype=dtype, device=device)
 
 
+def chi2_threshold(confidence: float, dof: int, max_dof: int) -> float:
+    """The table's quantile at a static ``dof`` (a Python float, so a gate
+    with a fixed dof needs no table on the device)."""
+    return float(_table_np(confidence, max_dof)[min(max(dof, 0), max_dof)])
+
+
 def chi2_gate(gamma: torch.Tensor, dof: torch.Tensor, confidence: float, max_dof: int):
     """True where gamma passes (is below) the chi2 quantile at ``dof``;
     dof is clipped into [0, max_dof] and dof <= 0 always fails."""

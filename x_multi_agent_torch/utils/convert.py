@@ -2,7 +2,7 @@
 
 :func:`from_numpy` turns one of the reference's state objects — a
 ``FilterState`` (with its ``VisionState``), ``CoreState``, ``TrackSlots``,
-``TrackerState`` or ``Matches`` whose leaves the caller has already mapped
+``TrackerState``, ``Matches`` or ``AgentPayload`` whose leaves the caller has already mapped
 to numpy arrays — into the port's dataclass of the same name. It reads
 fields by name and never imports JAX. :func:`to_numpy` goes back: the port's
 dataclass -> a dict of numpy arrays keyed by field name (nested for nested
@@ -18,12 +18,14 @@ import torch
 
 def _registry():
     from ..ekf.state import CoreState, FilterState, VisionState
+    from ..parallel.payload import AgentPayload
     from ..vio.track_manager import Matches, TrackSlots
     from ..vision.tracker import TrackerState
 
     return {
         c.__name__: c
-        for c in (CoreState, FilterState, VisionState, TrackSlots, TrackerState, Matches)
+        for c in (CoreState, FilterState, VisionState, TrackSlots, TrackerState, Matches,
+                  AgentPayload)
     }
 
 

@@ -186,6 +186,23 @@ def orbit_traj(
     )
 
 
+def _orbits(n_agents: int, n_frames: int):
+    """The image benchmark's per-agent orbits (20 Hz camera, 200 Hz IMU)."""
+    return [
+        orbit_traj(duration=(n_frames + 1) / 20.0, imu_rate=200.0, cam_rate=20.0,
+                   radius=1.5, omega=0.6, phase=2.0 * np.pi * i / max(n_agents, 1),
+                   yaw_amp=0.15, pitch_amp=0.10, roll_amp=0.08, z_amp=0.3, seed=i)
+        for i in range(n_agents)
+    ]
+
+
+def orbit_start(n_agents: int):
+    """Each agent's true initial state on :func:`orbit_dataset`'s orbits:
+    (p0 (A, 3), v0 (A, 3), q0 (A, 4)) numpy, for ``init_at_time``."""
+    trajs = _orbits(n_agents, 1)
+    return tuple(np.stack([t_[k] for t_ in trajs]) for k in ("p0", "v0", "q0"))
+
+
 def orbit_dataset(n_agents: int, n_frames: int, h: int, w: int, device, tex_size: int = 2048,
                   m_per_px: float = 0.004):
     """The image benchmark's data: per-agent 6-DoF orbits (radius 1.5 m,
@@ -195,14 +212,8 @@ def orbit_dataset(n_agents: int, n_frames: int, h: int, w: int, device, tex_size
     Returns frames (n_frames, A, h, w) float32 on ``device`` and the IMU
     windows (times, seqs, w_m, a_m), each (n_frames, A, 10, ...), float32 /
     int32 on ``device``."""
-    cam_rate, imu_rate = 20.0, 200.0
     tex = make_texture(0, size=tex_size, device=device)
-    trajs = [
-        orbit_traj(duration=(n_frames + 1) / cam_rate, imu_rate=imu_rate, cam_rate=cam_rate,
-                   radius=1.5, omega=0.6, phase=2.0 * np.pi * i / max(n_agents, 1),
-                   yaw_amp=0.15, pitch_amp=0.10, roll_amp=0.08, z_amp=0.3, seed=i)
-        for i in range(n_agents)
-    ]
+    trajs = _orbits(n_agents, n_frames)
     p_all = np.stack([t_["cam_p"][:n_frames] for t_ in trajs], axis=1)
     r_all = np.stack([t_["cam_rot"][:n_frames] for t_ in trajs], axis=1)
     fx = 0.8 * w

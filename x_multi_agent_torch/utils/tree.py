@@ -54,6 +54,22 @@ def map_leaves(fn, obj):
     return obj
 
 
+def cat(objs):
+    """Concatenate same-structured state containers along the agent axis."""
+    first = objs[0]
+    if isinstance(first, torch.Tensor):
+        return torch.cat(objs, dim=0)
+    if dataclasses.is_dataclass(first):
+        return dataclasses.replace(
+            first, **{f.name: cat([getattr(o, f.name) for o in objs])
+                      for f in dataclasses.fields(first)},
+        )
+    if isinstance(first, tuple):
+        vals = [cat(list(xs)) for xs in zip(*objs)]
+        return type(first)(*vals) if hasattr(first, "_fields") else tuple(vals)
+    raise TypeError(f"cannot concatenate {type(first).__name__}")
+
+
 def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Batched gather along axis 1: ``out[a, ...] = x[a, idx[a, ...]]``.
 

@@ -13,6 +13,7 @@ from typing import Optional
 import torch
 
 from ..ekf import ekf as ekf_mod
+from ..ops import linalg
 from ..vision import camera as cam_mod
 from ..vision import tracker as trk
 from . import pipeline
@@ -41,9 +42,7 @@ def frame_step(
     On CUDA tensors the filter algebra must run in full fp32: raises if
     TF32 matmuls are on (``torch.backends.cuda.matmul.allow_tf32``). The
     step runs no cuDNN operation, so the cuDNN flag does not matter here."""
-    if imgs.is_cuda and torch.backends.cuda.matmul.allow_tf32:
-        raise ValueError("frame_step needs TF32 matmuls off on CUDA "
-                         "(torch.backends.cuda.matmul.allow_tf32 = False)")
+    linalg.require_fp32_matmul(imgs.device, "frame_step")
     tstate, matches = trk.track_frame_batch(
         tparams, cam, tstate, imgs, generator=generator, ransac_idx=ransac_idx
     )

@@ -9,9 +9,9 @@ One fixed-shape program per camera frame, batched over agents:
 
 Everything is masked/fixed-budget; gated-out rows are zeros.
 
-Ported here: the ``merge_short_into_stack=True`` path without range or sun
-rows and without the collaboration store (``VioConfig.enable_range`` /
-``enable_sun`` raise; ``merge_short_into_stack=False`` raises).
+Ported here: the ``merge_short_into_stack=True`` path with the range and
+sun rows and the debug payload, without the collaboration store
+(``merge_short_into_stack=False`` raises).
 """
 from __future__ import annotations
 
@@ -31,7 +31,8 @@ from ..ops import linalg
 from ..ops.triangulation import ivd_to_world, triangulate_gn
 from . import state_manager as sm
 from . import track_manager as tm
-from .updates import msckf, msckf_slam, slam
+from .range_facet import feature_triangle_at_point
+from .updates import msckf, msckf_slam, range as range_upd, slam, solar
 
 
 class VioConfig(NamedTuple):
@@ -78,6 +79,55 @@ class FrameMeasurement(NamedTuple):
         )
 
 
+class FrameDebug(NamedTuple):
+    """Per-frame observability payload (the reference's GUI accessors),
+    (A, ...) per field; points in normalized undistorted coordinates."""
+
+    msckf_cur: torch.Tensor  # (A, Km, 2) last obs of each MSCKF track
+    msckf_inlier: torch.Tensor  # (A, Km) passed the chi2 gate
+    msckf_valid: torch.Tensor  # (A, Km)
+    short_cur: torch.Tensor  # (A, Ks, 2)
+    short_valid: torch.Tensor  # (A, Ks)
+    slam_cur: torch.Tensor  # (A, N, 2) current obs of SLAM features
+    slam_valid: torch.Tensor  # (A, N)
+    new_cur: torch.Tensor  # (A, Kn, 2)
+    new_valid: torch.Tensor  # (A, Kn)
+    new_is_msckf: torch.Tensor  # (A, Kn)
+    opp_cur: torch.Tensor  # (A, Ko, 2) opportunistic pool current obs
+    opp_valid: torch.Tensor  # (A, Ko)
+    slam_cartesian: torch.Tensor  # (A, N, 3) world-frame SLAM landmarks
+    slam_cart_valid: torch.Tensor  # (A, N)
+    facet_ids: torch.Tensor  # (A, 3) SLAM indices of the LRF facet
+    facet_found: torch.Tensor  # (A,)
+
+    @staticmethod
+    def zero(cfg: VioConfig, a: int, dtype=torch.float32, device=None) -> "FrameDebug":
+        t, n = cfg.tracks, cfg.dims.n_features
+
+        def z(*shape, dt=dtype):
+            return torch.zeros((a,) + shape, dtype=dt, device=device)
+
+        b = torch.bool
+        return FrameDebug(
+            msckf_cur=z(t.n_msckf, 2), msckf_inlier=z(t.n_msckf, dt=b),
+            msckf_valid=z(t.n_msckf, dt=b), short_cur=z(t.n_short, 2),
+            short_valid=z(t.n_short, dt=b), slam_cur=z(n, 2), slam_valid=z(n, dt=b),
+            new_cur=z(t.n_new_slam, 2), new_valid=z(t.n_new_slam, dt=b),
+            new_is_msckf=z(t.n_new_slam, dt=b), opp_cur=z(t.n_opp, 2),
+            opp_valid=z(t.n_opp, dt=b), slam_cartesian=z(n, 3), slam_cart_valid=z(n, dt=b),
+            facet_ids=torch.full((a, 3), -1, dtype=torch.int32, device=device),
+            facet_found=z(dt=b),
+        )
+
+
+def _last_obs(obs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Last masked observation of each (A, K, M, 2) track window."""
+    m = obs.shape[2]
+    pos = torch.arange(m, device=obs.device)
+    last = torch.amax(torch.where(mask, pos, -1), dim=2).clamp(min=0)
+    return torch.gather(obs, 2, last[:, :, None, None].expand(-1, -1, 1, 2))[:, :, 0]
+
+
 def _apply_rows(cov, jac, res, std, correction_total, cov_update=True):
     """Whiten -> (Gram-compress if rows > 2D) -> Kalman update."""
     d = cov.shape[-1]
@@ -95,11 +145,11 @@ def visual_update(
     cov: torch.Tensor,
     slots: tm.TrackSlots,
     meas: FrameMeasurement,
+    return_debug: bool = False,
 ):
     """One full visual update at the measurement state, per agent.
-    Returns (core, vision, cov, slots)."""
-    if cfg.enable_range or cfg.enable_sun:
-        raise NotImplementedError("range and sun-sensor rows are not ported")
+    Returns (core, vision, cov, slots), and a :class:`FrameDebug` after them
+    with ``return_debug``."""
     if not cfg.merge_short_into_stack:
         raise NotImplementedError("only merge_short_into_stack=True is ported")
     dims = cfg.dims
@@ -170,6 +220,22 @@ def visual_update(
             slam_has_obs, torch.clamp(slam_len, max=m), cov, cur_pose_idx, cfg.sigma_img,
         )
         rows = [msckf_rows, mslam_rows, slam_rows]
+        if cfg.enable_range:
+            # LRF facet: the least-area triangle of SLAM features around the
+            # LRF image point
+            facet_ids, facet_found = feature_triangle_at_point(
+                slam_z, slam_has_obs, meas.range_img_pt
+            )
+            rows.append(range_upd.build(
+                meas.range_value, meas.range_img_pt, facet_ids, vision.f_arr,
+                vision.anchor_idx, vision.q_arr, vision.p_arr, cov, cur_pose_idx,
+                cfg.sigma_range, meas.range_active & facet_found,
+            ))
+        else:
+            facet_ids = torch.full((cov.shape[0], 3), -1, dtype=torch.int32, device=dev)
+            facet_found = torch.zeros((cov.shape[0],), dtype=torch.bool, device=dev)
+        if cfg.enable_sun:
+            rows.append(solar.build(meas.sun_angles, core.q, cov, meas.sun_active))
         jac = torch.cat([r.jac for r in rows], dim=1)
         res = torch.cat([r.res for r in rows], dim=1)
         std = torch.cat([r.noise_std for r in rows], dim=1)
@@ -203,5 +269,27 @@ def visual_update(
         correction_last, cfg.sigma_img, cfg.rho_0, cfg.sigma_rho_0,
     )
     slots = tm.insert_new_slam_tracks(slots, frame, accepted, n_feat_before)
-    return core, vision, cov, slots
+    if not return_debug:
+        return core, vision, cov, slots
+    ara = torch.arange(cov.shape[0], device=dev)[:, None]
+    anc = vision.anchor_idx.long()
+    debug = FrameDebug(
+        msckf_cur=_last_obs(frame.msckf_obs, frame.msckf_mask),
+        msckf_inlier=ms_info.inlier[:, : frame.msckf_obs.shape[1]] & frame.msckf_valid,
+        msckf_valid=frame.msckf_valid,
+        short_cur=_last_obs(frame.short_obs, frame.short_mask),
+        short_valid=frame.short_valid,
+        slam_cur=slam_z,
+        slam_valid=slam_has_obs,
+        new_cur=frame.new_obs[:, :, m - 1],
+        new_valid=frame.new_valid,
+        new_is_msckf=frame.new_is_msckf,
+        opp_cur=slots.opp_obs[:, :, m - 1],
+        opp_valid=slots.opp_mask[:, :, m - 1] & (slots.opp_id >= 0),
+        slam_cartesian=ivd_to_world(vision.f_arr, vision.q_arr[ara, anc], vision.p_arr[ara, anc]),
+        slam_cart_valid=vision.feature_mask(dims),
+        facet_ids=facet_ids,
+        facet_found=facet_found,
+    )
+    return core, vision, cov, slots, debug
 

@@ -92,6 +92,31 @@ class Matches:
     tile: torch.Tensor  # (A, J) int32 image tile of the current obs (-1 n/a)
     level: torch.Tensor  # (A, J) int32 pyramid level at detection
 
+    @staticmethod
+    def zero(dims: TrackDims, a: int, dtype=torch.float32, device=None) -> "Matches":
+        j = dims.n_matches
+        return Matches.of(
+            track_id=torch.full((a, j), -1, dtype=torch.int32, device=device),
+            prev_pt=torch.zeros((a, j, 2), dtype=dtype, device=device),
+            cur_pt=torch.zeros((a, j, 2), dtype=dtype, device=device),
+            valid=torch.zeros((a, j), dtype=torch.bool, device=device),
+        )
+
+    @staticmethod
+    def of(track_id, prev_pt, cur_pt, valid, desc=None, desc_valid=None, tile=None,
+           level=None) -> "Matches":
+        """Matches from ids and points; descriptors, tiles and levels
+        default to none (zeros, tile -1, level 0)."""
+        shape, dev = track_id.shape, track_id.device
+        if desc is None:
+            desc = torch.zeros(shape + (32,), dtype=torch.uint8, device=dev)
+            desc_valid = torch.zeros(shape, dtype=torch.bool, device=dev)
+        if tile is None:
+            tile = torch.full(shape, -1, dtype=torch.int32, device=dev)
+        if level is None:
+            level = torch.zeros(shape, dtype=torch.int32, device=dev)
+        return Matches(track_id, prev_pt, cur_pt, valid, desc, desc_valid, tile, level)
+
 
 @dataclass(frozen=True)
 class FrameTracks:

@@ -234,3 +234,17 @@ def track_frame_batch(
             has_prev=torch.ones_like(state.has_prev),
         )
     return new_state, matches
+
+
+def track_frame(
+    params: TrackerParams,
+    cam: cam_mod.Camera,
+    state: TrackerState,
+    img: torch.Tensor,  # (H, W)
+    generator: Optional[torch.Generator] = None,
+    ransac_idx: Optional[torch.Tensor] = None,
+) -> Tuple[TrackerState, Matches]:
+    """One tracker frame for a single agent: :func:`track_frame_batch` at
+    A = 1 (``state``, the matches and ``ransac_idx`` keep their agent axis
+    of 1)."""
+    return track_frame_batch(params, cam, state, img[None], generator, ransac_idx)
