@@ -10,8 +10,14 @@ a few frames the device-busy time (sum of kernel times), the device idle
 share of the wall time and the number of kernel launches, with the top
 kernels by device time; then the same trace of one collaborative round
 (``collab.collaborative_round``, default ``CollabConfig``) of those 16
-agents. Prints the JSON (and writes it to ``--out`` when given). Needs a
-CUDA card.
+agents, and of the request-response collaboration's calls on their state:
+the visual update alone and with the match store
+(``collab.visual_update_with_store``), the keyframe step
+(``collab.maybe_add_keyframe``), one ``request_response_round`` and one
+``collaborative_msckf_round``. Every collaboration call computes its masked
+work whatever the data, so its launches and host time do not depend on
+there being keyframes, hits or stored matches. Prints the JSON (and writes
+it to ``--out`` when given). Needs a CUDA card.
 """
 import argparse
 import json
@@ -26,7 +32,9 @@ sys.path.insert(0, ROOT)
 
 from x_multi_agent_torch import configs  # noqa: E402
 from x_multi_agent_torch.ekf import ekf as ekf_mod  # noqa: E402
-from x_multi_agent_torch.parallel import collab  # noqa: E402
+from x_multi_agent_torch.ops.ransac import generator_sampler  # noqa: E402
+from x_multi_agent_torch.parallel import collab, match_store  # noqa: E402
+from x_multi_agent_torch.place_recognition import database as db_mod  # noqa: E402
 from x_multi_agent_torch.utils.scene import orbit_dataset, orbit_start  # noqa: E402
 from x_multi_agent_torch.vio import pipeline, vio  # noqa: E402
 from x_multi_agent_torch.vision import tracker  # noqa: E402
@@ -71,8 +79,10 @@ def main() -> int:
     stages = ("tracker", "imu", "update")
     sums = dict.fromkeys(stages, 0.0)
 
+    meas = None
+
     def step(k, timed):
-        nonlocal tstate, fs, slots
+        nonlocal tstate, fs, slots, meas
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         ev[0].record()
         tstate, matches = tracker.track_frame_batch(tparams, cam, tstate, frames[k], generator=gen)
@@ -125,6 +135,30 @@ def main() -> int:
     fused = []
     rnd = traced(lambda i: fused.append(int(collab.collaborative_round(params, ccfg, fs)[1].sum())), 1)
     rnd["matches_fused"] = fused[0]
+
+    t_meas = times[n - 1][:, -1]
+    store = match_store.MatchStore.zero(params.cfg.dims, match_store.StoreDims(), a, device=dev)
+    db_dims = db_mod.DbDims(n_keyframes=15, n_words=64, max_agents=a)
+    words = torch.randint(0, 256, (64, 32), generator=gen, device=dev).to(torch.uint8)
+    db = db_mod.KeyframeDB.zero(db_dims, collab.extract_payload_desc(params, fs, slots))
+    kf_meta = collab.KfMeta.zero(a, fs.cov.dtype, dev)
+    sampler = generator_sampler(gen)
+    calls = {
+        "visual_update": lambda i: ekf_mod.process_update_aux_impl(
+            ekf_p, fs, t_meas,
+            lambda c, v, p, s: pipeline.visual_update(params.cfg, c, v, p, s, meas), slots),
+        "visual_update_with_store": lambda i: collab.visual_update_with_store(
+            params, ccfg, fs, slots, store, t_meas, meas),
+        "keyframe_step": lambda i: collab.maybe_add_keyframe(
+            params, db_dims, words, fs, slots, db, kf_meta),
+        "request_response_round": lambda i: collab.request_response_round(
+            params, ccfg, words, fs, slots, db, sampler=sampler),
+        "msckf_round": lambda i: collab.collaborative_msckf_round(params, ccfg, fs, slots),
+    }
+    request_comm = {}
+    for name, fn in calls.items():
+        fn(0)  # warm-up
+        request_comm[name] = traced(fn, 1)
     out = {
         "card": torch.cuda.get_device_name(0),
         "agents": a,
@@ -136,6 +170,7 @@ def main() -> int:
         "kernel_launches_per_frame": frame["kernel_launches"],
         "top_kernels_ms_per_frame": frame["top_kernels_ms"],
         "collab_round": rnd,
+        "request_comm": request_comm,
     }
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels (K1 FAST, K2 LK level) against their plain
-PyTorch versions, and the card's float32 collaborative round against the
-CPU's float64 one.
+PyTorch versions, and the card's float32 collaborative rounds (the full-map
+round and the descriptor-driven request-response round) against the CPU's
+float64 ones, with no synchronizing operation inside a round.
 
 Tests marked ``gpu`` need a CUDA card and skip without one; they run on the
 card with ``python -m pytest --noconftest -m gpu tests/test_torch_kernels.py``
@@ -16,7 +17,10 @@ import torch
 
 from x_multi_agent_torch import configs
 from x_multi_agent_torch.ekf.state import StateDims
+from x_multi_agent_torch.ops.ransac import draw_sample_indices, generator_sampler
 from x_multi_agent_torch.parallel import collab
+from x_multi_agent_torch.place_recognition import database as db_mod
+from x_multi_agent_torch.place_recognition.vocabulary import train_kmajority
 from x_multi_agent_torch.utils import tree
 from x_multi_agent_torch.vio import pipeline
 from x_multi_agent_torch.vio import track_manager as tm
@@ -311,5 +315,124 @@ def test_collaborative_round_never_waits_for_the_card(cuda, two_agents):
     torch.cuda.set_sync_debug_mode("error")
     try:
         collab.collaborative_round(params, ccfg, fs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+# the reference tests' descriptor setting (test_request_comm_loop.py:35-38)
+DESC_CCFG = collab.CollabConfig(sigma_landmark=0.1, ci_slam_w=0.05, gt_match_dist=0.6,
+                                match_budget=8, desc_ratio_thr=0.9, desc_abs_thr=40.0,
+                                pr_score_thr=0.2)
+
+
+def _cpu_sampler(mask, seed, t, k):
+    """RANSAC sample indices drawn on the CPU from ``seed`` alone: the same
+    draws on either device for the same mask."""
+    g = torch.Generator().manual_seed(seed)
+    return draw_sample_indices(mask.cpu(), 200, g).to(mask.device)
+
+
+@pytest.fixture(scope="module")
+def desc_fleet():
+    """Three port agents (the second 0.25 m off under a loose prior, the
+    third 0.1 m off) driven 1.5 s through the facade on the CPU in float64,
+    with descriptors from a random table keyed by track id; stacked (fs,
+    slots), 16 words, and each agent's keyframe ring holding its own
+    snapshot and its next peer's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from x_multi_agent_tpu.utils.sim import make_circle_sim  # numpy only
+
+    params = _collab_params("float64")
+    desc_table = np.random.default_rng(11).integers(0, 256, (40, 32)).astype(np.uint8)
+    sim = make_circle_sim(duration=1.5, imu_rate=100.0, cam_rate=10.0, n_landmarks=30,
+                          match_budget=60, pixel_noise=5e-4, seed=1)
+    fss, slotss = [], []
+    for offset, sigma_dp in (((0.0, 0.0, 0.0), 1e-3), ((0.25, 0.0, 0.0), 0.5),
+                             ((0.0, 0.1, 0.0), 0.1)):
+        v = vio.VIO(params._replace(sigma_dp=(sigma_dp,) * 3))
+        v.init_at_time(0.0, p=np.asarray(offset), v=np.array([1.8, 0.0, 0.0]))
+        imu_i = 0
+        for f, t_cam in enumerate(sim.cam_t):
+            while imu_i < len(sim.imu_t) and sim.imu_t[imu_i] <= t_cam + 1e-9:
+                v.process_imu(sim.imu_t[imu_i], imu_i, sim.imu_w[imu_i], sim.imu_a[imu_i])
+                imu_i += 1
+            ids = np.clip(sim.match_id[f], 0, len(desc_table) - 1)
+            v.process_matches_measurement(t_cam, f, tm.Matches.of(
+                track_id=torch.from_numpy(sim.match_id[f])[None],
+                prev_pt=torch.from_numpy(sim.match_prev[f])[None],
+                cur_pt=torch.from_numpy(sim.match_cur[f])[None],
+                valid=torch.from_numpy(sim.match_valid[f])[None],
+                desc=torch.from_numpy(desc_table[ids])[None],
+                desc_valid=torch.from_numpy(sim.match_valid[f])[None]))
+        fss.append(v.fs)
+        slotss.append(v.slots)
+    fs, slots = tree.cat(fss), tree.cat(slotss)
+    rng = np.random.default_rng(12)
+    words = torch.from_numpy(
+        train_kmajority(rng.integers(0, 256, (400, 32)).astype(np.uint8), 16, 5).words)
+    own = collab.extract_payload_desc(params, fs, slots)
+    peer = tree.map_leaves(lambda x: x[(torch.arange(3) + 1) % 3], own)
+    dd = db_mod.DbDims(n_keyframes=3, n_words=16, max_agents=4)
+    db = db_mod.add_keyframe(dd, db_mod.add_keyframe(dd, db_mod.KeyframeDB.zero(dd, own), own,
+                                                     words), peer, words)
+    return fs, slots, words, dd, db
+
+
+def _to_card(x, device):
+    return tree.map_leaves(lambda v: (v.float() if v.is_floating_point() else v).to(device), x)
+
+
+@pytest.mark.gpu
+def test_request_response_round_cuda_matches_cpu(cuda, desc_fleet):
+    """The request-response round on the card in float32 against the CPU in
+    float64, same inputs and RANSAC draws: hits, fused counts and the
+    keyframe rings exactly; covariance within 1e-4 of its max, buffer and
+    window states within 1e-4."""
+    fs, slots, words, _, db = desc_fleet
+    ref = collab.request_response_round(_collab_params("float64"), DESC_CCFG, words, fs, slots,
+                                        db, sampler=_cpu_sampler)
+    got = collab.request_response_round(
+        _collab_params("float32"), DESC_CCFG, words.to(cuda), _to_card(fs, cuda),
+        _to_card(slots, cuda), _to_card(db, cuda), sampler=_cpu_sampler)
+    torch.cuda.synchronize()
+    ref_fs, ref_db, ref_hits, ref_n = ref
+    got_fs, got_db, got_hits, got_n = got
+    assert torch.equal(got_hits.cpu(), ref_hits) and bool(ref_hits.any())
+    assert torch.equal(got_n.cpu(), ref_n) and int(ref_n.sum()) > 0
+    for name in ("served", "valid", "wptr", "vlad"):
+        assert torch.equal(getattr(got_db, name).cpu(), getattr(ref_db, name)), name
+    cov_scale = float(ref_fs.cov.abs().max())
+    assert float((got_fs.cov.cpu().double() - ref_fs.cov).abs().max()) <= 1e-4 * cov_scale
+    assert float((got_fs.buffer.cpu().double() - ref_fs.buffer).abs().max()) <= 1e-4
+    for name in ("p_arr", "q_arr", "f_arr"):
+        g = getattr(got_fs.vision, name).cpu().double()
+        assert float((g - getattr(ref_fs.vision, name)).abs().max()) <= 1e-4, name
+
+
+@pytest.mark.gpu
+def test_request_comm_rounds_never_wait_for_the_card(cuda, desc_fleet):
+    """After a first pass has built the per-device constants, the fleet's
+    collaboration step (a request-response round with the card's own RANSAC
+    draws, a joint-MSCKF round, the keyframe step) runs no synchronizing
+    CUDA operation (sync debug mode "error" raises on one)."""
+    fs, slots, words, dd, db = desc_fleet
+    fs, slots, db, words = (_to_card(x, cuda) for x in (fs, slots, db, words))
+    params = _collab_params("float32")
+    sampler = generator_sampler(torch.Generator(device=cuda).manual_seed(0))
+
+    def step():
+        f, d, _, _ = collab.request_response_round(params, DESC_CCFG, words, fs, slots, db,
+                                                   sampler=sampler)
+        f, _ = collab.collaborative_msckf_round(params, DESC_CCFG, f, slots)
+        kf = collab.KfMeta.zero(3, torch.float32, cuda)
+        collab.maybe_add_keyframe(params, dd, words, f, slots, d, kf,
+                                  enabled=torch.ones((3,), dtype=torch.bool, device=cuda))
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step()
     finally:
         torch.cuda.set_sync_debug_mode("default")

@@ -127,6 +127,29 @@ def jax_sample_indices(mask, next_id, n_hyp):
     return jax.random.categorical(key, jnp.log(jnp.maximum(probs, 1e-30)), shape=(n_hyp, 8))
 
 
+def jax_keyed_sampler(n_hyp=200):
+    """A sampler for the port's collaboration RANSAC gates that repeats the
+    reference's draw (``ransac.py:101-106``) under its key
+    fold_in(fold_in(PRNGKey(seed), float32 bits of t), k), per agent
+    (``collab.py:184-193``, ``match_store.py:165-171``)."""
+
+    def draw(mask, seed, tm, k):
+        out = []
+        for i in range(mask.shape[0]):
+            key = jax.random.fold_in(
+                jax.random.fold_in(jax.random.PRNGKey(seed),
+                                   jnp.asarray(float(tm[i]), jnp.float32).view(jnp.int32)),
+                jnp.asarray(int(k[i]), jnp.int32),
+            )
+            probs = jnp.asarray(mask[i].cpu().numpy()).astype(jnp.float64)
+            probs = probs / jnp.maximum(probs.sum(), 1.0)
+            out.append(np.asarray(jax.random.categorical(
+                key, jnp.log(jnp.maximum(probs, 1e-30)), shape=(n_hyp, 8))))
+        return torch.from_numpy(np.stack(out)).to(mask.device)
+
+    return draw
+
+
 def jax_frame_indices(jp, state, imgs):
     """Regenerate, per agent, the RANSAC indices the reference's
     track_frame_batch draws inside _track_core."""

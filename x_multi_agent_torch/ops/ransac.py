@@ -16,6 +16,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils.const import constant
 from ..utils.tree import take
 
 
@@ -53,7 +54,7 @@ def _eight_point(p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
     m = m + (1e-10 * tr + 1e-30)[..., None, None] * eye
     c, info = torch.linalg.cholesky_ex(m)
     c = torch.where((info == 0)[..., None, None], c, float("nan"))
-    x = torch.tensor(_START, dtype=a.dtype, device=a.device).expand(m.shape[:-1])[..., None]
+    x = constant(_START, a.dtype, a.device).expand(m.shape[:-1])[..., None]
     for _ in range(4):
         x = torch.cholesky_solve(x, c)
         x = x / torch.clamp(torch.linalg.norm(x, dim=-2, keepdim=True), min=1e-30)
@@ -81,6 +82,21 @@ def draw_sample_indices(mask: torch.Tensor, n_hypotheses: int, generator: torch.
     w = torch.where(w.sum(-1, keepdim=True) > 0, w, torch.ones_like(w))
     idx = torch.multinomial(w, n_hypotheses * 8, replacement=True, generator=generator)
     return idx.reshape(a, n_hypotheses, 8)
+
+
+def generator_sampler(generator: torch.Generator, n_hypotheses: int = 200):
+    """The sample-index source of the collaboration's RANSAC gates.
+
+    Those gates call ``sampler(mask, seed, t, k)`` -> (A, S, 8), where the
+    reference would key its draw on ``PRNGKey(seed)`` folded with the float32
+    bits of ``t`` (A,) and then with ``k`` (A,). This sampler draws from
+    ``generator`` and ignores the key; parity tests pass one that repeats
+    the reference's draw."""
+
+    def draw(mask, seed, t, k):
+        return draw_sample_indices(mask, n_hypotheses, generator)
+
+    return draw
 
 
 def _vote(pts1, pts2, mask, idx, threshold: float):

@@ -19,9 +19,9 @@ from ..vio.updates.multi_slam import _landmark_jac_blocks, landmark_world
 
 @dataclass(frozen=True)
 class AgentPayload:
-    """The reference's ``AgentPayload``, (A, ...) per field. The descriptor
-    and collaborative-track fields are zero-filled here (no descriptors in
-    the full-map round)."""
+    """The reference's ``AgentPayload``, (A, ...) per field. Keyframes add
+    the SLAM-track descriptors and last observations and the collaborative
+    track set; the full-map round leaves those zero-filled."""
 
     time: torch.Tensor  # (A,) snapshot time
     p_arr: torch.Tensor  # (A, M, 3) camera positions (world)
@@ -71,19 +71,36 @@ def landmark_covariances(dims: StateDims, vision: VisionState, cov: torch.Tensor
     return torch.einsum("aibox,aibxjcy,ajcsy->aijos", jacs, p_sub, jacs)
 
 
-def make_payload(dims: StateDims, time: torch.Tensor, vision: VisionState, cov: torch.Tensor,
-                 n_collab_tracks: int = 8) -> AgentPayload:
-    """Snapshot of A agents at ``time`` (A,), the descriptor and track
-    fields zero-filled."""
+def make_payload(
+    dims: StateDims, time: torch.Tensor, vision: VisionState, cov: torch.Tensor,
+    slam_desc=None, slam_desc_valid=None, slam_obs=None,
+    trk_obs=None, trk_mask=None, trk_desc=None, trk_desc_valid=None,
+    n_collab_tracks: int = 8, trk_id=None, slam_id=None,
+) -> AgentPayload:
+    """Snapshot of A agents at ``time`` (A,). The descriptor, observation
+    and collaborative-track fields come from the keyword arguments (all
+    (A, ...)); those not given are zero-filled (ids -1), with
+    ``n_collab_tracks`` track slots when ``trk_obs`` is not given."""
     lms, valid = slam_landmarks_world(dims, vision)
     m, n = dims.n_poses, dims.n_features
     a = cov.shape[0]
     dtype, dev = cov.dtype, cov.device
-    kt = n_collab_tracks
 
     def zeros(*shape, dt=dtype):
         return torch.zeros((a,) + shape, dtype=dt, device=dev)
 
+    if slam_desc is None:
+        slam_desc, slam_desc_valid = zeros(n, 32, dt=torch.uint8), zeros(n, dt=torch.bool)
+    if slam_obs is None:
+        slam_obs = zeros(n, 2)
+    if trk_obs is None:
+        kt = n_collab_tracks
+        trk_obs, trk_mask = zeros(kt, m, 2), zeros(kt, m, dt=torch.bool)
+        trk_desc, trk_desc_valid = zeros(kt, 32, dt=torch.uint8), zeros(kt, dt=torch.bool)
+    if trk_id is None:
+        trk_id = torch.full(trk_obs.shape[:2], -1, dtype=torch.int32, device=dev)
+    if slam_id is None:
+        slam_id = torch.full((a, n), -1, dtype=torch.int32, device=dev)
     return AgentPayload(
         time=time.to(dtype),
         p_arr=vision.p_arr,
@@ -96,13 +113,13 @@ def make_payload(dims: StateDims, time: torch.Tensor, vision: VisionState, cov: 
         n_valid_features=vision.n_valid_features,
         landmarks=lms,
         landmark_valid=valid,
-        slam_desc=zeros(n, 32, dt=torch.uint8),
-        slam_desc_valid=zeros(n, dt=torch.bool),
-        slam_obs=zeros(n, 2),
-        trk_obs=zeros(kt, m, 2),
-        trk_mask=zeros(kt, m, dt=torch.bool),
-        trk_desc=zeros(kt, 32, dt=torch.uint8),
-        trk_desc_valid=zeros(kt, dt=torch.bool),
-        trk_id=torch.full((a, kt), -1, dtype=torch.int32, device=dev),
-        slam_id=torch.full((a, n), -1, dtype=torch.int32, device=dev),
+        slam_desc=slam_desc,
+        slam_desc_valid=slam_desc_valid,
+        slam_obs=slam_obs,
+        trk_obs=trk_obs,
+        trk_mask=trk_mask,
+        trk_desc=trk_desc,
+        trk_desc_valid=trk_desc_valid,
+        trk_id=trk_id,
+        slam_id=slam_id,
     )

@@ -11,6 +11,8 @@ import numpy as np
 import torch
 from scipy.stats import chi2 as _chi2
 
+from .const import constant
+
 
 @functools.lru_cache(maxsize=None)
 def _table_np(confidence: float, max_dof: int) -> np.ndarray:
@@ -22,8 +24,8 @@ def _table_np(confidence: float, max_dof: int) -> np.ndarray:
 
 
 def chi2_quantile_table(confidence: float, max_dof: int, dtype, device) -> torch.Tensor:
-    """(max_dof+1,) table; index with a dof tensor."""
-    return torch.as_tensor(_table_np(confidence, max_dof).copy(), dtype=dtype, device=device)
+    """(max_dof+1,) table, built once per device; index with a dof tensor."""
+    return constant(tuple(_table_np(confidence, max_dof).tolist()), dtype, device)
 
 
 def chi2_threshold(confidence: float, dof: int, max_dof: int) -> float:

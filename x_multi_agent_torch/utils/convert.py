@@ -1,12 +1,15 @@
 """State conversion between the JAX reference package and the port.
 
-:func:`from_numpy` turns one of the reference's state objects — a
-``FilterState`` (with its ``VisionState``), ``CoreState``, ``TrackSlots``,
-``TrackerState``, ``Matches`` or ``AgentPayload`` whose leaves the caller has already mapped
-to numpy arrays — into the port's dataclass of the same name. It reads
-fields by name and never imports JAX. :func:`to_numpy` goes back: the port's
-dataclass -> a dict of numpy arrays keyed by field name (nested for nested
-states), so both packages can start from, and be compared on, one state.
+:func:`from_numpy` turns one of the reference's state objects whose leaves
+the caller has already mapped to numpy arrays into the port's class of the
+same name: a ``FilterState`` (with its ``VisionState``), ``CoreState``,
+``TrackSlots``, ``FrameTracks``, ``TrackerState``, ``Matches``, ``AgentPayload``,
+``KeyframeDB``, ``MatchStore``, ``KfMeta``, ``HarvestedWork`` or a
+``Vocabulary`` (its words; its integer fields stay integers). It reads
+fields by name and never imports JAX. :func:`to_numpy` goes back: the
+port's dataclass -> a dict of numpy arrays keyed by field name (nested for
+nested states), so both packages can start from, and be compared on, one
+state.
 """
 from __future__ import annotations
 
@@ -18,34 +21,49 @@ import torch
 
 def _registry():
     from ..ekf.state import CoreState, FilterState, VisionState
+    from ..parallel.collab import KfMeta
+    from ..parallel.match_store import HarvestedWork, MatchStore
     from ..parallel.payload import AgentPayload
-    from ..vio.track_manager import Matches, TrackSlots
+    from ..place_recognition.database import KeyframeDB
+    from ..place_recognition.vocabulary import Vocabulary
+    from ..vio.track_manager import FrameTracks, Matches, TrackSlots
     from ..vision.tracker import TrackerState
 
     return {
         c.__name__: c
         for c in (CoreState, FilterState, VisionState, TrackSlots, TrackerState, Matches,
-                  AgentPayload)
+                  AgentPayload, KeyframeDB, MatchStore, KfMeta, HarvestedWork, Vocabulary,
+                  FrameTracks)
     }
 
 
+def _field_names(cls):
+    if dataclasses.is_dataclass(cls):
+        return [f.name for f in dataclasses.fields(cls)]
+    return list(cls._fields)  # NamedTuple
+
+
 def from_numpy(obj, device, dtype=torch.float32):
-    """Reference state object with numpy leaves -> the port's dataclass.
-    Floating leaves take ``dtype``; integer and boolean leaves keep theirs."""
+    """Reference state object with numpy leaves -> the port's class.
+    Floating leaves take ``dtype``; integer and boolean leaves keep theirs;
+    Python scalars stay as they are."""
     reg = _registry()
     name = type(obj).__name__
     if name not in reg:
         raise TypeError(f"no port counterpart for {name}")
     cls = reg[name]
     vals = {}
-    for f in dataclasses.fields(cls):
-        leaf = getattr(obj, f.name)
+    for fname in _field_names(cls):
+        leaf = getattr(obj, fname)
         if type(leaf).__name__ in reg:
-            vals[f.name] = from_numpy(leaf, device, dtype)
+            vals[fname] = from_numpy(leaf, device, dtype)
+            continue
+        if isinstance(leaf, (int, float, bool)):
+            vals[fname] = leaf
             continue
         arr = np.asarray(leaf)
         t = torch.from_numpy(np.array(arr, copy=True)).to(device)
-        vals[f.name] = t.to(dtype) if arr.dtype.kind == "f" else t
+        vals[fname] = t.to(dtype) if arr.dtype.kind == "f" else t
     return cls(**vals)
 
 

@@ -10,11 +10,12 @@ One fixed-shape program per camera frame, batched over agents:
 Everything is masked/fixed-budget; gated-out rows are zeros.
 
 Ported here: the ``merge_short_into_stack=True`` path with the range and
-sun rows and the debug payload, without the collaboration store
+sun rows, the debug payload and the collaboration store's branches
 (``merge_short_into_stack=False`` raises).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Tuple
 
 import torch
@@ -145,11 +146,22 @@ def visual_update(
     cov: torch.Tensor,
     slots: tm.TrackSlots,
     meas: FrameMeasurement,
+    store=None,
+    collab_cfg=None,
     return_debug: bool = False,
 ):
     """One full visual update at the measurement state, per agent.
-    Returns (core, vision, cov, slots), and a :class:`FrameDebug` after them
-    with ``return_debug``."""
+
+    With ``store`` (a :class:`parallel.match_store.MatchStore`) and
+    ``collab_cfg`` (a ``CollabConfig``), stored cross-agent matches are
+    upgraded and consumed inside the update: SLAM-SLAM upgrades and the
+    matched dead tracks' joint short CI before state management, the
+    matched MSCKF tracks' joint CI after the stacked update (those tracks
+    leave the solo stack).
+
+    Returns (core, vision, cov, slots), with a store (core, vision, cov,
+    slots, store, n_collab (A,)), and a :class:`FrameDebug` after them with
+    ``return_debug``."""
     if not cfg.merge_short_into_stack:
         raise NotImplementedError("only merge_short_into_stack=True is ported")
     dims = cfg.dims
@@ -166,6 +178,12 @@ def visual_update(
         cfg.msckf_baseline_x_n, cfg.msckf_baseline_y_n,
         prev_pose_valid=vision.n_valid_poses >= 1,
     )
+
+    # ---------------- 1b. persistent cross-agent match consumption --------
+    if store is not None:
+        store, work, frame, joint, n_collab, core, vision, cov = _consume_stored(
+            cfg, collab_cfg, core, vision, cov, slots, frame, store
+        )
 
     # ---------------- 2. state management ---------------------------------
     vision, cov, perm, n_keep = sm.manage(dims, core, vision, cov, frame.lost_slam, q_ic, p_ic)
@@ -251,6 +269,19 @@ def visual_update(
         correction_total = correction_total + corr
         correction_last = corr  # increment since the LAST build
 
+    # ---------------- 3b. joint-MSCKF CI on stored matches -----------------
+    if store is not None and collab_cfg.use_stored_msckf:
+        from ..parallel import match_store as ms_mod
+        from .updates import msckf_multi
+
+        joint_obs, joint_mask, joint_valid = joint
+        core, vision, cov, n_jm = msckf_multi.apply_joint_msckf_ci_pairs(
+            dims, core, vision, cov, joint_obs, joint_mask & joint_valid[..., None], joint_valid,
+            *ms_mod.gather_peer_tracks(store, work.msckf_rows, work.msckf_matched),
+            work.msckf_matched, cfg.sigma_img, collab_cfg.ci_msckf_w, oc=cfg.obs_constrained,
+        )
+        n_collab = n_collab + n_jm
+
     # ---------------- 4. feature initialization ---------------------------
     ms_finite = (
         torch.isfinite(ms_init.h2).all(-1).all(-1)
@@ -269,8 +300,11 @@ def visual_update(
         correction_last, cfg.sigma_img, cfg.rho_0, cfg.sigma_rho_0,
     )
     slots = tm.insert_new_slam_tracks(slots, frame, accepted, n_feat_before)
+    out = (core, vision, cov, slots)
+    if store is not None:
+        out = out + (store, n_collab)
     if not return_debug:
-        return core, vision, cov, slots
+        return out
     ara = torch.arange(cov.shape[0], device=dev)[:, None]
     anc = vision.anchor_idx.long()
     debug = FrameDebug(
@@ -291,5 +325,49 @@ def visual_update(
         facet_ids=facet_ids,
         facet_found=facet_found,
     )
-    return core, vision, cov, slots, debug
+    return out + (debug,)
+
+
+def _consume_stored(cfg: VioConfig, ccfg, core, vision, cov, slots, frame, store):
+    """The store's pre-management step: harvest this frame's match work,
+    apply the stored SLAM-SLAM upgrades (feature indices are pre-compaction,
+    aligned with the current vision state) and the matched dead tracks'
+    joint short CI (pre-slide pose list), and take the matched rows out of
+    the solo short and MSCKF sets. Returns (store, work, frame, (joint MSCKF
+    obs, mask, valid), n_collab, core, vision, cov)."""
+    from ..parallel import match_store as ms_mod
+    from .updates import msckf_multi, multi_slam
+
+    dims = cfg.dims
+    store, work = ms_mod.update_and_harvest(store, slots, frame, ccfg.max_peers)
+    n_collab = torch.zeros_like(vision.n_valid_features)
+    if ccfg.use_stored_slam:
+        ss_own, ss_peer, ss_p, ss_q, ss_f, ss_a, ss_cov, ss_ok = ms_mod.gather_peer_slam(store, work)
+        core, vision, cov, n_ss, _ = multi_slam.apply_matches_pairs(
+            dims, core, vision, cov, ss_p, ss_q, ss_f, ss_a, ss_cov, ss_own, ss_peer, ss_ok,
+            ccfg.sigma_landmark, ccfg.ci_slam_w,
+        )
+        n_collab = n_collab + n_ss
+    if ccfg.use_stored_shortci:
+        short_any = work.short_matched.any(-1)
+        core, vision, cov, n_sj = msckf_multi.apply_joint_msckf_ci_pairs(
+            dims, core, vision, cov, frame.short_obs, frame.short_mask & short_any[..., None],
+            frame.short_valid & short_any,
+            *ms_mod.gather_peer_tracks(store, work.short_rows, work.short_matched),
+            work.short_matched, cfg.sigma_img, ccfg.ci_msckf_w, oc=cfg.obs_constrained,
+        )
+        n_collab = n_collab + n_sj
+    else:
+        short_any = torch.zeros_like(frame.short_valid)
+    msckf_any = (work.msckf_matched.any(-1) if ccfg.use_stored_msckf
+                 else torch.zeros_like(frame.msckf_valid))
+    joint = (frame.msckf_obs, frame.msckf_mask, frame.msckf_valid & msckf_any)
+    frame = dataclasses.replace(
+        frame,
+        short_valid=frame.short_valid & ~short_any,
+        short_mask=frame.short_mask & ~short_any[..., None],
+        msckf_valid=frame.msckf_valid & ~msckf_any,
+        msckf_mask=frame.msckf_mask & ~msckf_any[..., None],
+    )
+    return store, work, frame, joint, n_collab, core, vision, cov
 

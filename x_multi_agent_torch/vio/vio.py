@@ -2,8 +2,9 @@
 ``x_multi_agent_tpu.vio.vio``): the parameter set, the initial covariance,
 ``init_at_time``, the match-driven ``process_matches`` (and its debug form),
 and the stateful :class:`VIO`, which holds one agent's state with an agent
-axis of 1. The facade's photometric calibration and its collaboration and
-request methods are not ported.
+axis of 1, with its collaboration (keyframes, requests, the match store).
+The facade's photometric calibration and debug-image render are not
+ported.
 """
 from __future__ import annotations
 
@@ -202,6 +203,10 @@ class VIO:
             scale = np.sqrt(np.maximum(init_diag / np.maximum(np.diag(core_cov), 1e-30), 1.0))
             core_cov = core_cov * scale[:, None] * scale[None, :]
         self.init_at_time(float(core.time[0]), core_cov=core_cov, **vals)
+        if self._collab_enabled:
+            # stored matches and keyframe-selection state refer to pre-reset
+            # landmarks: drop them (the keyframe DB keeps serving peers)
+            self._reset_collab_state()
         self._bad_frames = 0
         self.n_reinits += 1
 
@@ -340,7 +345,18 @@ class VIO:
                                  sun_active=self._batch(True, torch.bool))
             self._last_sun = None
         self._last_matches = matches
-        if self._debug:
+        if self._collab_enabled:
+            from ..parallel import collab as collab_mod
+
+            (self.fs, self.slots, self._store, self._db, self._kf_meta, applied, kf_sel,
+             n_collab) = collab_mod.process_matches_collab(
+                self.params, self._ccfg, self._db_dims, self._words, self.fs, self.slots,
+                self._store, self._db, self._kf_meta, self._batch(t), meas,
+            )
+            self.n_collab_consumed = self.n_collab_consumed + n_collab[0]
+            self.n_keyframes_selected += int(kf_sel[0])
+            applied = bool(applied[0])
+        elif self._debug:
             self.fs, self.slots, applied, dbg = process_matches_debug(
                 self.params, self.fs, self.slots, self._batch(t), meas
             )
@@ -355,6 +371,98 @@ class VIO:
         if self._health is not None:
             self._health_post_update(applied)
         return applied
+
+    # -- multi-agent collaboration (request-response) ---------------------------
+
+    def enable_collab(self, words, uav_id: int = 0, db_dims=None, ccfg=None, store_dims=None,
+                      generator=0):
+        """Attach the collaborative stack: keyframe ring with VLAD
+        vocabulary ``words`` (W, 32) and a persistent cross-agent match
+        store. After this every applied visual update runs the
+        keyframe-selection heuristic and consumes stored matches.
+        ``generator`` (a ``torch.Generator`` on the facade's device, or a
+        seed) draws the RANSAC gates' hypotheses; ``self.sampler`` may be
+        replaced by any ``ops.ransac.generator_sampler``-style callable."""
+        from ..ops.ransac import generator_sampler
+        from ..parallel import collab as collab_mod, match_store as ms_mod
+        from ..place_recognition import database as db_mod
+
+        if self.fs is None:
+            raise RuntimeError("call init_at_time first")
+        if not isinstance(generator, torch.Generator):
+            generator = torch.Generator(device=self.device).manual_seed(int(generator))
+        self._words = torch.as_tensor(words, dtype=torch.uint8, device=self.device)
+        self._uav_id = int(uav_id)
+        self._db_dims = db_dims or db_mod.DbDims(n_words=int(self._words.shape[0]))
+        self._ccfg = ccfg or collab_mod.CollabConfig()
+        self._store_dims = store_dims or ms_mod.StoreDims()
+        self.sampler = generator_sampler(generator)
+        proto = collab_mod.extract_payload_desc(self.params, self.fs, self.slots)
+        self._db = db_mod.KeyframeDB.zero(self._db_dims, proto)
+        self._reset_collab_state()
+        self.n_keyframes_selected = 0
+        self.n_collab_consumed = torch.zeros((), dtype=torch.int32, device=self.device)
+
+    def _reset_collab_state(self):
+        from ..parallel import collab as collab_mod, match_store as ms_mod
+
+        dt = self.params.tdtype
+        self._store = ms_mod.MatchStore.zero(self.params.cfg.dims, self._store_dims, 1,
+                                             dtype=dt, device=self.device)
+        self._kf_meta = collab_mod.KfMeta.zero(1, dt, self.device)
+        self._fuse_recency = {}
+
+    @property
+    def _collab_enabled(self) -> bool:
+        return getattr(self, "_db", None) is not None
+
+    def get_data_to_send(self):
+        """Full-broadcast payload (agent axis of 1)."""
+        from ..parallel import collab as collab_mod
+
+        return collab_mod.extract_payload_desc(self.params, self.fs, self.slots)
+
+    def get_descriptors(self) -> torch.Tensor:
+        """Requester side: the VLAD (1, W, 32) of the current frame's track
+        descriptors."""
+        from ..parallel import collab as collab_mod
+
+        return collab_mod.query_vlad(self._words, self.slots)
+
+    def process_other_requests(self, requester_id: int, vlad):
+        """Responder side: the best keyframe not yet served to
+        ``requester_id`` whose VLAD score beats ``pr_score_thr``. Returns
+        (payload, found); ship the payload only when found."""
+        from ..place_recognition import database as db_mod
+
+        vlad = torch.as_tensor(vlad, dtype=torch.uint8, device=self.device).reshape(
+            (1,) + self._words.shape)
+        idx, found, self._db = db_mod.find_candidate(
+            self._db, int(requester_id), vlad, self._ccfg.pr_score_thr
+        )
+        return db_mod.get_keyframe(self._db, idx), bool(found[0])
+
+    def process_other_measurements(self, payload, uav_id: int, valid=True) -> int:
+        """Receive a peer payload (agent axis of 1): SLAM-SLAM matches
+        CI-fuse at once; OPP matches are recorded for later visual updates.
+        With ``ccfg.refuse_cooldown > 0`` a per-peer recency table gates the
+        re-fusion of an own landmark against the same peer. Returns the
+        number of matches fused now."""
+        from ..parallel import collab as collab_mod
+
+        linalg.require_fp32_matmul(self.device, "VIO.process_other_measurements")
+        recency = None
+        if self._ccfg.refuse_cooldown > 0:
+            recency = self._fuse_recency.get(uav_id) or collab_mod.fresh_recency(self.slots)
+        self.fs, self._store, n, recency1 = collab_mod.receive_and_record(
+            self.params, self._ccfg, self.fs, self.slots, self._store, payload,
+            self._batch(uav_id, torch.int32), self._batch(bool(valid), torch.bool),
+            recency=recency, sampler=self.sampler,
+        )
+        if recency is not None:
+            last_id, last_cnt, cnt = recency1
+            self._fuse_recency[uav_id] = (last_id, last_cnt, cnt + 1)
+        return int(n[0])
 
     # -- telemetry -------------------------------------------------------------
 

@@ -64,21 +64,30 @@ def build_pyramid(img: torch.Tensor, depth: int):
 
 
 def bilinear_sample(img: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
-    """Bilinear interpolation of one (H, W) image at float (x, y) positions
-    pts (..., 2). Out-of-bounds clamps to the edge."""
-    h, w = img.shape
+    """Bilinear interpolation of images (*B, H, W) at float (x, y) positions
+    pts (*B, ..., 2), each batch entry sampling its own image. Out-of-bounds
+    clamps to the edge; a NaN position samples NaN (its gather index is
+    clamped, so it never reads outside the image)."""
+    h, w = img.shape[-2:]
     x = torch.clamp(pts[..., 0], 0.0, w - 1.001)
     y = torch.clamp(pts[..., 1], 0.0, h - 1.001)
-    x0 = torch.floor(x).long()
-    y0 = torch.floor(y).long()
+    x0 = torch.floor(x).long().clamp(0, w - 1)
+    y0 = torch.floor(y).long().clamp(0, h - 1)
     x1 = torch.clamp(x0 + 1, max=w - 1)
     y1 = torch.clamp(y0 + 1, max=h - 1)
     fx = x - x0
     fy = y - y0
-    v00 = img[y0, x0]
-    v01 = img[y0, x1]
-    v10 = img[y1, x0]
-    v11 = img[y1, x1]
+    lead = img.shape[:-2]
+    flat = img.reshape(lead + (h * w,))
+
+    def at(yy, xx):
+        idx = (yy * w + xx).reshape(lead + (-1,))
+        return torch.gather(flat, -1, idx).reshape(yy.shape)
+
+    v00 = at(y0, x0)
+    v01 = at(y0, x1)
+    v10 = at(y1, x0)
+    v11 = at(y1, x1)
     return (
         v00 * (1 - fx) * (1 - fy)
         + v01 * fx * (1 - fy)

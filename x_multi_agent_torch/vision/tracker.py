@@ -14,6 +14,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..ops.ransac import draw_sample_indices, ransac_inliers
+from ..place_recognition import descriptors
 from ..utils.tree import scatter_dump, take
 from ..vio.track_manager import Matches, stable_partition
 from . import camera as cam_mod
@@ -38,7 +39,7 @@ class TrackerParams(NamedTuple):
     min_eig_thr: float = 1e-4
     ransac_threshold_px: float = 0.3
     ransac_hypotheses: int = 96
-    compute_descriptors: bool = False  # not ported: must stay False
+    compute_descriptors: bool = False  # steered-BRIEF descriptors of tracked features
 
 
 @dataclass(frozen=True)
@@ -131,6 +132,11 @@ def _track_core(params, cam, state: TrackerState, imgs, pyr_prev, pyr_cur, ransa
 
     prev_n = cam_mod.normalize(cam, cam_mod.undistort(cam, state.pts))
     cur_n = cam_mod.normalize(cam, cam_mod.undistort(cam, cur_pts))
+    if params.compute_descriptors:
+        desc, desc_ok = descriptors.compute(imgs, cur_pts, tracked)
+    else:
+        desc = torch.zeros((a, f, 32), dtype=torch.uint8, device=imgs.device)
+        desc_ok = torch.zeros((a, f), dtype=torch.bool, device=imgs.device)
     h_img, w_img = imgs.shape[1:]
     tile_r = torch.clamp((cur_pts[..., 1] * params.n_tiles_h / h_img).to(torch.int32),
                          0, params.n_tiles_h - 1)
@@ -142,8 +148,8 @@ def _track_core(params, cam, state: TrackerState, imgs, pyr_prev, pyr_cur, ransa
         prev_pt=torch.where(t2, prev_n, 0.0).to(dtype),
         cur_pt=torch.where(t2, cur_n, 0.0).to(dtype),
         valid=tracked,
-        desc=torch.zeros((a, f, 32), dtype=torch.uint8, device=imgs.device),
-        desc_valid=torch.zeros((a, f), dtype=torch.bool, device=imgs.device),
+        desc=desc,
+        desc_valid=desc_ok & tracked,
         tile=torch.where(tracked, tile_r * params.n_tiles_w + tile_c, -1).to(torch.int32),
         level=torch.where(tracked, state.levels, 0).to(torch.int32),
     )
@@ -203,8 +209,6 @@ def track_frame_batch(
     the test is a Python branch here, so it costs one device-to-host sync
     per frame. Per agent, only agents below the minimum append candidates.
     """
-    if params.compute_descriptors:
-        raise NotImplementedError("tracker descriptors are not ported")
     if ransac_idx is None and generator is None:
         raise ValueError("pass a torch.Generator or the RANSAC sample indices")
     depth = params.lk_max_level
