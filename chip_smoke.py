@@ -23,7 +23,12 @@ Phases (any failure raises, so the exit code is non-zero):
      events; the image benchmark's asserts (live features >= 10 per agent,
      finite covariance), both kernels launched on this path, no JAX
      imported;
-  4. times of K1 and K2 against their plain versions at the slice shapes;
+  4. K1 on one detection frame's two levels and K2 on one frame's three
+     levels, per launch: the CUDA-event time, the device time from a
+     ``torch.profiler`` trace of the same calls (summed over the kernel's
+     own symbol), the plain version's time and the bound (the larger of the
+     bytes over 3.35 TB/s and the operations over the fp32 peak, counted
+     for these inputs: see ``k1_work`` and ``k2_work``);
   5. collaboration: a fresh fleet of the same 16 agents from their
      initial states through ``frame_step`` for 10 frames, with a full-map
      exchange round (``collab.collaborative_round``, the reference's
@@ -59,8 +64,8 @@ Phases (any failure raises, so the exit code is non-zero):
 
 The last three lines of standard output are the kernels' JSON record (the
 launch counts summed over the paths of phases 3 and 5-8, each read from 0
-around its path), the card's ``nvidia-smi`` name and power limit, and the
-result JSON.
+around its path; phase 4's times per launch), the card's ``nvidia-smi``
+name and power limit, and the result JSON.
 """
 import json
 import os
@@ -74,6 +79,10 @@ ROUND_EVERY = 5  # collaborative rounds after every 5th frame
 N_FACADE = N_WARM + N_TIMED
 N_RC, RC_ROUNDS = 20, (15, 20)  # request-response fleet: frames, rounds after these
 N_WORDS, EXCHANGE_EVERY = 64, 3
+# one H100 SXM at its 700 W limit (NVIDIA's data sheet): HBM3 bytes/s, fp32
+# flop/s outside the tensor cores (an FMA counts 2), and fp32 instructions/s
+# that are not FMAs (min, max, compare, add: one per lane per clock)
+PEAK_BYTES, PEAK_FLOPS, PEAK_OPS = 3.35e12, 67e12, 33.5e12
 
 
 def _card_line() -> str:
@@ -114,6 +123,154 @@ def _timed(torch, fn):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end)
+
+
+def _device_us(event) -> float:
+    """Device time of one profiler event (the attribute was renamed across
+    torch versions)."""
+    for attr in ("device_time", "cuda_time", "self_device_time_total"):
+        if hasattr(event, attr):
+            return float(getattr(event, attr))
+    raise AttributeError("profiler event has no device time")
+
+
+def device_ms(torch, fn, symbol: str, reps: int = 20, tries: int = 3) -> float:
+    """Mean device milliseconds of the kernel whose name holds ``symbol``,
+    from a ``torch.profiler`` trace of ``reps`` calls of ``fn`` (after a
+    warm-up call), each launching it once. The tracer sometimes drops
+    events (11 of 40 kept once): the mean is over the launches it kept, the
+    trace is taken again while it kept fewer than half, and it fails if it
+    keeps none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and symbol in e.name]
+        if 2 * len(evs) >= reps:
+            break
+    if not evs:
+        raise AssertionError(f"the profiler saw no launch of {symbol}")
+    return sum(_device_us(e) for e in evs) / 1e3 / len(evs)
+
+
+def k1_work(torch, fast, imgs, thr):
+    """(bytes, fp32 operations) K1 needs on (A, H, W) images: each pixel
+    read once and its score written once; 4 subtracts and 8 compares per
+    interior pixel for the compass taps, 179 operations per pixel that
+    passes them (16 subtracts, the 4-level min and max trees, 2 x 16
+    reductions, the negation, the polarity max, the threshold), 8 max and
+    1 compare per pixel for NMS."""
+    a, h, w = imgs.shape
+    n_cand = int(fast.compass_candidates(imgs, thr).sum())
+    n_int = a * max(h - 6, 0) * max(w - 6, 0)
+    return 8 * a * h * w, 12 * n_int + 179 * n_cand + 9 * a * h * w
+
+
+def k2_work(torch, lk, args):
+    """(bytes, flops) K2 needs for one level on these inputs: the distinct
+    pixels of every feature's slabs in prev, gx and gy, and in the current
+    image at the feature's guess and at its final flow (the iterations in
+    between stay within a pixel or two of those), 4 bytes each, plus points,
+    guesses, flows and flags; 39 flops per window pixel for the three
+    windows and G, 16 per window pixel and Gauss-Newton step, with the steps
+    each feature takes in the plain version."""
+    prev, cur, dx, dy, pts, guess, half_win = args[:7]
+    a, h, w = prev.shape
+    k = pts.shape[1]
+    flow, _, iters = lk._track_level(*args, return_iters=True)
+    p, pad, n = 2 * half_win + 2, half_win + 1, (2 * half_win + 1) ** 2
+    offs = torch.arange(p, device=pts.device)
+    base = torch.arange(a, device=pts.device)[:, None, None, None] * (h * w)
+
+    def footprint(pt):
+        by = torch.clamp(torch.floor(pt[..., 1] - half_win).long() + pad, 0, h + 2 * pad - p)
+        bx = torch.clamp(torch.floor(pt[..., 0] - half_win).long() + pad, 0, w + 2 * pad - p)
+        rows = torch.clamp(by[..., None] + offs - pad, 0, h - 1)
+        cols = torch.clamp(bx[..., None] + offs - pad, 0, w - 1)
+        mask = torch.zeros(a * h * w, dtype=torch.bool, device=pts.device)
+        mask[(base + rows[..., :, None] * w + cols[..., None, :]).reshape(-1)] = True
+        return mask
+
+    px_prev = int(footprint(pts).sum())
+    px_cur = int((footprint(pts + guess) | footprint(pts + flow)).sum())
+    nbytes = 4 * (3 * px_prev + px_cur) + a * k * (16 + 8 + 1)
+    return nbytes, a * k * n * 39 + int(iters.sum()) * n * 16
+
+
+def kernel_times(torch, fast, lk, det_levels, level_inputs, thr) -> dict:
+    """K1 on one detection frame's levels and K2 on one frame's LK levels,
+    per launch (means over the frame's launches): CUDA-event ms, profiler
+    device ms (each level traced on its own), the plain version's ms, the
+    bound and what bounds it."""
+    calls = {
+        "fast": ("fast_score_nms_kernel",
+                 [lambda i=i: fast.fast_score_nms(i, thr) for i in det_levels],
+                 lambda: [fast.nms3(fast.fast_score(i, thr)) for i in det_levels],
+                 [k1_work(torch, fast, i, thr) for i in det_levels], PEAK_OPS),
+        "lk": ("lk_level_kernel",
+               [lambda a=a: lk.track_level(*a) for a in level_inputs],
+               lambda: [lk._track_level(*a) for a in level_inputs],
+               [k2_work(torch, lk, a) for a in level_inputs], PEAK_FLOPS),
+    }
+    out = {}
+    for name, (symbol, launches, plain, work, peak) in calls.items():
+        n = len(work)
+        t_bytes = sum(b for b, _ in work) / PEAK_BYTES * 1e3
+        t_ops = sum(o for _, o in work) / peak * 1e3
+        bound = sum(max(b / PEAK_BYTES, o / peak) for b, o in work) * 1e3 / n
+        r = {"ms": _ms(torch, lambda: [f() for f in launches]) / n,
+             "device_ms": sum(device_ms(torch, f, symbol) for f in launches) / n,
+             "plain_ms": _ms(torch, plain) / n, "bound_ms": bound,
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "library_ms": None, "launches_per_frame": n,
+             "bytes_per_frame": sum(b for b, _ in work), "ops_per_frame": sum(o for _, o in work)}
+        r["share_of_bound"] = r["bound_ms"] / r["device_ms"]
+        out[name] = r
+    return out
+
+
+def kernel_inputs(torch, tparams, frame0, frame1):
+    """The slice's kernel inputs from two (A, H, W) frames: their pyramids,
+    frame 0's detection levels (K1's inputs) and the features detected on
+    frame 0 and slotted as the tracker slots them (A, K, 2) (K2's points),
+    with the mask of the slots that hold one."""
+    from x_multi_agent_torch.vision import tracker
+    from x_multi_agent_torch.vision.image import build_pyramid
+
+    pyr0 = build_pyramid(frame0, tparams.lk_max_level)
+    pyr1 = build_pyramid(frame1, tparams.lk_max_level)
+    det_levels = [pyr0[lvl].contiguous() for lvl in range(tparams.pyramid_depth)]
+    a, h, w = frame0.shape
+    st = tracker.TrackerState.zero(tparams, a, h, w, device=frame0.device)
+    cand = tracker._detect_new_batch(tparams, pyr0, st.pts, st.ids >= 0)
+    st = tracker._integrate(tparams, st, frame0, st.ids >= 0, st.pts, *cand)
+    return pyr0, pyr1, det_levels, st.pts.contiguous(), st.ids >= 0
+
+
+def k2_level_inputs(torch, lk, tparams, pyr0, pyr1, pts, half_win):
+    """The slice's K2 inputs at every level, coarsest first: ``pts`` tracked
+    from pyramid ``pyr0`` into ``pyr1``, each level's guess from the plain
+    version's coarser level. Returns [(args, plain (flow, ok))]."""
+    from x_multi_agent_torch.vision.image import scharr_gradients
+
+    out = []
+    flow = torch.zeros_like(pts)
+    for lvl in range(len(pyr0) - 1, -1, -1):
+        dx, dy = scharr_gradients(pyr0[lvl])
+        pts_l = (pts / 2.0**lvl).contiguous()
+        flow = (flow * 2.0 if lvl < len(pyr0) - 1 else flow).contiguous()
+        args = (pyr0[lvl].contiguous(), pyr1[lvl].contiguous(), dx.contiguous(),
+                dy.contiguous(), pts_l, flow, half_win, tparams.lk_iters, tparams.min_eig_thr)
+        ref = lk._track_level(*args)
+        out.append((args, ref))
+        flow = ref[0]
+    return out
 
 
 def _cov_health(torch, cov) -> dict:
@@ -350,7 +507,6 @@ def main() -> int:
     from x_multi_agent_torch.vio import vio
     from x_multi_agent_torch.vio.frame_step import frame_step
     from x_multi_agent_torch.vision import fast, lk, tracker
-    from x_multi_agent_torch.vision.image import build_pyramid, scharr_gradients
 
     # ---- 0. card and build -------------------------------------------------
     card = _card_line()
@@ -361,6 +517,7 @@ def main() -> int:
     t0 = time.perf_counter()
     native.lib()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {native.build_seconds} s)")
+    print(native.build_log.strip())
 
     t0 = time.perf_counter()
     frames, imu = orbit_dataset(N_AGENTS, N_WARM + N_TIMED, H, W, dev)
@@ -375,8 +532,7 @@ def main() -> int:
     _no_jax()
 
     # ---- 1. K1 against its plain version -----------------------------------
-    pyr0 = build_pyramid(frames[0], tparams.lk_max_level)
-    det_levels = [pyr0[l].contiguous() for l in range(tparams.pyramid_depth)]
+    pyr0, pyr1, det_levels, pts, live = kernel_inputs(torch, tparams, frames[0], frames[1])
     k1_err = 0.0
     for img in det_levels + [lvl[:1].contiguous() for lvl in det_levels]:
         got = fast.fast_score_nms(img, tparams.fast_threshold, nms=True)
@@ -395,38 +551,24 @@ def main() -> int:
     # the slice's inputs: 200 detected features per agent on frame 0, tracked
     # into frame 1 level by level (each level's guess from the plain
     # version's coarser level, the same for both)
-    st = tracker.TrackerState.zero(tparams, N_AGENTS, H, W, device=dev)
-    cand = tracker._detect_new_batch(tparams, pyr0, st.pts, st.ids >= 0)
-    st = tracker._integrate(tparams, st, frames[0], st.ids >= 0, st.pts, *cand)
-    pts = st.pts.contiguous()
-    print(f"K2 inputs: {int((st.ids >= 0).sum())} features over {N_AGENTS} agents")
-    pyr1 = build_pyramid(frames[1], tparams.lk_max_level)
+    print(f"K2 inputs: {int(live.sum())} features over {N_AGENTS} agents")
     k2_err = 0.0
-    level_inputs = []
     for half_win in (tparams.win_half, 15):
-        flow = torch.zeros_like(pts)
-        for lvl in range(len(pyr0) - 1, -1, -1):
-            dx, dy = scharr_gradients(pyr0[lvl])
-            pts_l = (pts / 2.0**lvl).contiguous()
-            flow = (flow * 2.0 if lvl < len(pyr0) - 1 else flow).contiguous()
-            args = (pyr0[lvl].contiguous(), pyr1[lvl].contiguous(), dx.contiguous(),
-                    dy.contiguous(), pts_l, flow, half_win, tparams.lk_iters,
-                    tparams.min_eig_thr)
+        levels = k2_level_inputs(torch, lk, tparams, pyr0, pyr1, pts, half_win)
+        for args, (f_p, ok_p) in levels:
             f_k, ok_k = lk.track_level(*args)
-            f_p, ok_p = lk._track_level(*args)
             torch.cuda.synchronize()
-            margin = lk.gate_margin(dx, dy, pts_l, half_win, tparams.min_eig_thr)
+            margin = lk.gate_margin(args[2], args[3], args[4], half_win, tparams.min_eig_thr)
             stt = lk.level_agreement(f_p, ok_p, f_k, ok_k, margin)
-            print(f"K2 half_win={half_win} level {lvl} {tuple(pyr0[lvl].shape)}: {json.dumps(stt)}")
+            print(f"K2 half_win={half_win} level {tuple(args[0].shape)}: {json.dumps(stt)}")
             good = (stt["ok_agree"] >= 0.995 and stt["max_disagree_margin"] <= 1e-3
                     and stt["max_flow_err"] <= 2e-2 and stt["share_within_1e-3"] >= 0.99
                     and stt["n_both_ok"] > 0)
             if not good:
-                raise AssertionError(f"K2 differs from its plain version at level {lvl}")
+                raise AssertionError(f"K2 differs from its plain version at {tuple(args[0].shape)}")
             k2_err = max(k2_err, stt["max_flow_err"])
-            if half_win == tparams.win_half:
-                level_inputs.append(args)
-            flow = f_p
+        if half_win == tparams.win_half:
+            level_inputs = [args for args, _ in levels]
     records["lk"] = {"max_abs_err": k2_err}
 
     _no_jax()
@@ -468,16 +610,15 @@ def main() -> int:
         raise AssertionError(f"main path missed a kernel: {launches}")
     _no_jax()
 
-    # ---- 4. kernel vs plain times at the slice shapes -----------------------
-    thr = tparams.fast_threshold
-    records["fast"]["ms"] = _ms(torch, lambda: [fast.fast_score_nms(i, thr) for i in det_levels])
-    records["fast"]["plain_ms"] = _ms(
-        torch, lambda: [fast.nms3(fast.fast_score(i, thr)) for i in det_levels])
-    records["lk"]["ms"] = _ms(torch, lambda: [lk.track_level(*a) for a in level_inputs])
-    records["lk"]["plain_ms"] = _ms(torch, lambda: [lk._track_level(*a) for a in level_inputs])
-    for name, r in records.items():
-        print(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms "
-              f"(one frame's levels, {card})")
+    # ---- 4. kernel times per launch at the slice shapes, against the bound --
+    times = kernel_times(torch, fast, lk, det_levels, level_inputs, tparams.fast_threshold)
+    for name, r in times.items():
+        records[name].update(r)
+        print(f"time {name} per launch (mean of {r['launches_per_frame']} per frame): device "
+              f"{r['device_ms']:.4f} ms (profiler), events {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
+              f"{r['bytes_per_frame']} bytes, {r['ops_per_frame']} operations per frame), "
+              f"share of bound {r['share_of_bound']:.3f} ({card})")
 
     _no_jax()
 
@@ -605,10 +746,12 @@ def main() -> int:
 
     kernels = []
     for name, k in (("fast", fast.K1), ("lk", lk.K2)):
+        r = records[name]
         kernels.append({
             "name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
-            "launches": counts.total[name], "max_abs_err": records[name]["max_abs_err"],
-            "ms": records[name]["ms"], "plain_ms": records[name]["plain_ms"],
+            "launches": counts.total[name], "max_abs_err": r["max_abs_err"],
+            **{key: r[key] for key in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                       "share_of_bound", "launches_per_frame", "library_ms")},
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

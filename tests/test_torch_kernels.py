@@ -8,12 +8,15 @@ card with ``python -m pytest --noconftest -m gpu tests/test_torch_kernels.py``
 (``--noconftest``: the suite's conftest imports JAX, which the card's machine
 does not have; nothing here imports it). The CPU tests check the dispatch
 rule: a CPU tensor goes to the plain version and leaves the launch counter
-as it was.
+as it was, and the compass-tap rejection rule K1 relies on.
 """
+import hypothesis.extra.numpy as hnp
+import hypothesis.strategies as hst
 import numpy as np
 import pytest
 import scipy.ndimage as ndi
 import torch
+from hypothesis import given, settings
 
 from x_multi_agent_torch import configs
 from x_multi_agent_torch.ekf.state import StateDims
@@ -83,6 +86,105 @@ def test_fast_kernel_matches_plain_exactly(cuda, shape, nms):
     ref = fast.nms3(score) if nms else score
     # only subtract/min/max/compare: bit-exact
     torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+def _rejection_images():
+    """Rendered orbit frames (2 agents, 120x160, both pyramid levels) and
+    seeded random images (uniform bytes, Gaussian noise, smooth texture)."""
+    from x_multi_agent_torch.utils.scene import orbit_dataset
+    from x_multi_agent_torch.vision.image import build_pyramid
+
+    frames, _ = orbit_dataset(2, 1, 120, 160, "cpu", tex_size=512)
+    rng = np.random.default_rng(9)
+    return build_pyramid(frames[0], 1) + [
+        torch.from_numpy(rng.integers(0, 256, size=(2, 64, 80)).astype(np.float32)),
+        torch.from_numpy(rng.normal(128, 40, size=(2, 64, 80)).astype(np.float32)),
+        torch.from_numpy(_textured(rng, 2, 64, 80)[0]),
+    ]
+
+
+@pytest.mark.parametrize("thr", [0.0, 5.0, 12.0, 40.0])
+def test_fast_rejection_rule_keeps_every_corner(thr):
+    """K1 scores only pixels where two cyclically adjacent compass taps pass
+    in one polarity (``fast.compass_candidates``); every pixel whose plain
+    score exceeds the threshold must be one, in the polarity that scores."""
+    n_cand = n_corner = n_px = 0
+    for img in _rejection_images():
+        score = fast.fast_score(img, thr)
+        cand = fast.compass_candidates(img, thr)
+        assert bool(cand[score > 0].all())
+        n_cand, n_corner = n_cand + int(cand.sum()), n_corner + int((score > 0).sum())
+        n_px += img.numel()
+        h, w = img.shape[-2:]
+        interior = torch.zeros((h, w), dtype=torch.bool)
+        interior[3:h - 3, 3:w - 3] = True
+        d = torch.stack([torch.roll(img, (-dy, -dx), dims=(-2, -1)) - img
+                         for dy, dx in fast.CIRCLE])
+        for v in (d, -d):  # bright, then dark: its arc passes only with its own pair
+            arc = torch.stack([torch.stack([v[(k + j) % 16] for j in range(9)]).amin(0)
+                               for k in range(16)]).amax(0)
+            pair = torch.stack([(v[4 * k] > thr) & (v[(4 * k + 4) % 16] > thr)
+                                for k in range(4)]).any(0)
+            assert bool(pair[(arc > thr) & interior].all())
+    assert n_corner > 0 and n_cand < n_px
+
+
+@given(d=hnp.arrays(np.float32, 16, elements=hst.floats(-255, 255, width=32)),
+       thr=hst.floats(0, 60, width=32))
+@settings(max_examples=300, deadline=None)
+def test_fast_rejection_rule_on_circles(d, thr):
+    """Any 16 circle differences: a 9-arc whose minimum exceeds thr (either
+    polarity) implies two cyclically adjacent compass taps exceeding it."""
+    for v in (d, -d):
+        arc = max(min(v[(k + j) % 16] for j in range(9)) for k in range(16))
+        pair = any(v[4 * k] > thr and v[(4 * k + 4) % 16] > thr for k in range(4))
+        assert pair or not arc > thr
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(3, 77, 133), (1, 240, 320)])
+@pytest.mark.parametrize("thr", [0.0, 12.0])
+@pytest.mark.parametrize("kind", ["flat", "noise"])
+def test_fast_kernel_exact_on_flat_and_noise(cuda, shape, thr, kind):
+    """K1 exact where every pixel is rejected (flat) and where most take the
+    full score (Gaussian noise), with and without NMS."""
+    rng = np.random.default_rng(7)
+    if kind == "flat":
+        imgs = np.full(shape, 97.0, np.float32)
+    else:
+        imgs = rng.normal(128, 60, size=shape).astype(np.float32)
+    imgs = torch.from_numpy(imgs).to(cuda)
+    share = float(fast.compass_candidates(imgs, thr).float().mean())
+    assert share == 0.0 if kind == "flat" else share > 0.5
+    for nms in (True, False):
+        got = fast.fast_score_nms(imgs, thr, nms=nms)
+        score = fast.fast_score(imgs, thr)
+        torch.testing.assert_close(got, fast.nms3(score) if nms else score, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("half_win", [3, 10, 15])
+def test_lk_kernel_mixed_convergence(cuda, half_win):
+    """K2 at 3 x 701 features (not a multiple of any warps-per-block count),
+    guesses that converge after 1 to 10 steps mixed within each block."""
+    rng = np.random.default_rng(8)
+    prev, cur = _textured(rng, 3, 120, 200)
+    prev, cur = torch.from_numpy(prev).to(cuda), torch.from_numpy(cur).to(cuda)
+    dx, dy = scharr_gradients(prev)
+    pts = rng.uniform([20, 20], [180, 100], size=(3, 701, 2))
+    shift = np.array([-1.3, 0.7])  # (dx, dy) of _textured's (0.7, -1.3) shift
+    guess = shift + rng.choice([0.0, 0.5, 2.0], size=(3, 701, 1)) * rng.normal(size=(3, 701, 2))
+    pts = torch.from_numpy(pts.astype(np.float32)).to(cuda)
+    guess = torch.from_numpy(guess.astype(np.float32)).to(cuda)
+    args = (prev, cur, dx, dy, pts, guess, half_win, 10, 1e-4)
+    flow, ok = lk.track_level(*args)
+    torch.cuda.synchronize()
+    f_ref, ok_ref, iters = lk._track_level(*args, return_iters=True)
+    assert len(torch.unique(iters)) >= 3
+    st = lk.level_agreement(f_ref, ok_ref, flow, ok, lk.gate_margin(dx, dy, pts, half_win, 1e-4))
+    assert st["ok_agree"] >= 0.995 and st["max_disagree_margin"] <= 1e-3, st
+    assert st["max_flow_err"] <= 2e-2 and st["share_within_1e-3"] >= 0.99, st
+    assert st["n_both_ok"] > 1000, st
 
 
 @pytest.mark.gpu
@@ -266,7 +368,7 @@ def two_agents():
                           match_budget=60, pixel_noise=5e-4, seed=1)
     agents = []
     for offset, sigma_dp in (((0.0, 0.0, 0.0), 1e-3), ((0.25, 0.0, 0.0), 0.5)):
-        v = vio.VIO(params._replace(sigma_dp=(sigma_dp,) * 3))
+        v = vio.VIO(params._replace(sigma_dp=(sigma_dp,) * 3), device="cpu")
         v.init_at_time(0.0, p=np.asarray(offset), v=np.array([1.8, 0.0, 0.0]))
         imu_i = 0
         for f, t_cam in enumerate(sim.cam_t):
@@ -350,7 +452,7 @@ def desc_fleet():
     fss, slotss = [], []
     for offset, sigma_dp in (((0.0, 0.0, 0.0), 1e-3), ((0.25, 0.0, 0.0), 0.5),
                              ((0.0, 0.1, 0.0), 0.1)):
-        v = vio.VIO(params._replace(sigma_dp=(sigma_dp,) * 3))
+        v = vio.VIO(params._replace(sigma_dp=(sigma_dp,) * 3), device="cpu")
         v.init_at_time(0.0, p=np.asarray(offset), v=np.array([1.8, 0.0, 0.0]))
         imu_i = 0
         for f, t_cam in enumerate(sim.cam_t):

@@ -22,7 +22,7 @@ import torch
 
 from test_collab import CCFG, DIMS, PARAMS, TRACKS, run_agent
 from test_match_store import SDIMS, _empty_frame, _payload, _slots_with_opp
-from torch_helpers import (assert_tree_close, jax_keyed_sampler, np_tree, port_params,
+from torch_helpers import (CPU, assert_tree_close, jax_keyed_sampler, np_tree, port_params,
                            sim_matches, stack, t, to_port)
 from x_multi_agent_tpu.parallel import collab as jcollab
 from x_multi_agent_tpu.parallel import match_store as jms
@@ -284,7 +284,7 @@ def test_record_and_dedup_matches_jax(ransac_thr):
     slots, pay = _store_inputs(np.random.default_rng(0))
     jstore = _stack(*[jms.MatchStore.zero(DIMS, SDIMS, n_collab_tracks=4, dtype=jnp.float64)] * 2)
     tstore = tms.MatchStore.zero(DIMS, tms.StoreDims(*SDIMS), 2, n_collab_tracks=4,
-                                 dtype=torch.float64)
+                                 dtype=torch.float64, device=CPU)
     assert_tree_close(tstore, np_tree(jstore), 0.0, "zero")
     uav = np.array([7, 3], np.int32)
     when = np.array([True, True])
@@ -314,7 +314,7 @@ def test_record_gt_and_harvest_match_jax():
     pay = dataclasses.replace(pay, trk_id=jnp.asarray(trk_id), slam_id=jnp.asarray(slam_id))
     jstore = _stack(*[jms.MatchStore.zero(DIMS, SDIMS, n_collab_tracks=4, dtype=jnp.float64)] * 2)
     jstore = jax.vmap(lambda s, sl, p: jms.record_gt(s, sl, p, 7))(jstore, slots, pay)
-    tstore = tms.record_gt(tms.MatchStore.zero(DIMS, tms.StoreDims(*SDIMS), 2, 4, torch.float64),
+    tstore = tms.record_gt(tms.MatchStore.zero(DIMS, tms.StoreDims(*SDIMS), 2, 4, torch.float64, CPU),
                            to_port(slots), to_port(pay), 7)
     assert_tree_close(tstore, np_tree(jstore), 0.0, "record_gt")
 
@@ -380,7 +380,7 @@ def store_run(desc_table):
                                                           pay_a, 0)
     t_fs, tstore, t_n, _ = tcollab.receive_and_record(
         TP, port_ccfg(ccfg), to_port(stack(vb.fs, 1)), to_port(stack(vb.slots, 1)),
-        tms.MatchStore.zero(DIMS, tms.StoreDims(*sdims), 1, 8, torch.float64),
+        tms.MatchStore.zero(DIMS, tms.StoreDims(*sdims), 1, 8, torch.float64, CPU),
         to_port(stack(pay_a, 1)), 0, sampler=SAMPLER)
     rec = [(int(j_n), int(t_n[0]), np_tree(stack(j_fs, 1)), t_fs, np_tree(stack(jstore, 1)), tstore)]
     sim2 = make_circle_sim(duration=sim.cam_t[-1] + 1.0, imu_rate=100.0, cam_rate=10.0,
@@ -465,7 +465,7 @@ def _closed_loop(n_frames, words, port_only=False, duration=None):
         fac[name] = []
         for uav, (off, sig) in enumerate((((0.0, 0.0, 0.0), 1e-3), ((0.25, 0.0, 0.0), 0.5))):
             params = PARAMS._replace(sigma_dp=(sig,) * 3)
-            v = mod.VIO(conv(params) if conv else params)
+            v = mod.VIO(conv(params), device=CPU) if conv else mod.VIO(params)
             v.init_at_time(0.0, p=np.asarray(off), v=np.array([1.8, 0.0, 0.0]))
             v.enable_collab(words, uav_id=uav, ccfg=port_ccfg(ccfg) if conv else ccfg)
             if conv:

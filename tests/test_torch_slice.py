@@ -18,7 +18,7 @@ import torch
 
 import __graft_entry__ as ge
 import bench
-from torch_helpers import (assert_tree_close, jax_frame_indices, np_tree, orbit_frames,
+from torch_helpers import (CPU, assert_tree_close, jax_frame_indices, np_tree, orbit_frames,
                            stack, t, to_port)
 from x_multi_agent_tpu.vio import vio as jvio
 from x_multi_agent_tpu.vision import camera as jcam
@@ -87,8 +87,8 @@ def test_frame_step_generator_path_runs_in_float32():
     frames, imu = orbit_frames(A, 3, H, W)
     outs = []
     for _ in range(2):
-        fs, slots = tvio.init_at_time(tp, 0.0, A, torch.device("cpu"))
-        tstate = ttrk.TrackerState.zero(trk_p, A, H, W)
+        fs, slots = tvio.init_at_time(tp, 0.0, A, CPU)
+        tstate = ttrk.TrackerState.zero(trk_p, A, H, W, device=CPU)
         g = torch.Generator().manual_seed(0)
         for k in range(3):
             x = [t(v[k], torch.float32) for v in imu]

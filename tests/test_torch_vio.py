@@ -18,7 +18,7 @@ from scipy.spatial.transform import Rotation
 
 import __graft_entry__ as ge
 from test_collab import CCFG, PARAMS
-from torch_helpers import (F64, assert_tree_close, jax_frame_indices, np_tree, orbit_frames,
+from torch_helpers import (CPU, F64, assert_tree_close, jax_frame_indices, np_tree, orbit_frames,
                            port_params, sim_matches, stack, t)
 from x_multi_agent_tpu.ekf import buffer as jrb
 from x_multi_agent_tpu.ekf import ekf as jekf
@@ -63,7 +63,7 @@ def match_run():
     per-frame tail and anchor states and ``applied``."""
     sim = make_circle_sim(duration=1.2, imu_rate=100.0, cam_rate=10.0, n_landmarks=30,
                           match_budget=PARAMS.cfg.tracks.n_matches, pixel_noise=5e-4, seed=2)
-    jv, tv = jvio.VIO(PARAMS, debug=True), tvio.VIO(TP, debug=True)
+    jv, tv = jvio.VIO(PARAMS, debug=True), tvio.VIO(TP, debug=True, device=CPU)
     for v in (jv, tv):
         v.init_at_time(0.0, v=np.array([1.8, 0.0, 0.0]))
     rec = []
@@ -127,7 +127,7 @@ def test_image_measurement_matches_jax():
     jtrk_p = jtrk.TrackerParams(**trk_p._asdict())
     cam = configs.flagship_camera(h, w)
     frames, imu = orbit_frames(1, n, h, w)
-    jv, tv = jvio.VIO(jp), tvio.VIO(tp)
+    jv, tv = jvio.VIO(jp), tvio.VIO(tp, device=CPU)
     jv.init_at_time(0.0)
     jv.setup_tracker(jtrk_p, jcam.Camera(*cam), h, w)
     tv.init_at_time(0.0)
@@ -153,7 +153,7 @@ def test_image_measurement_matches_jax():
 def test_reinit_from_current_matches_jax():
     """The health monitor's re-init twice: the second, within the streak,
     escalates (velocity and biases reset under a wide prior)."""
-    jv, tv = jvio.VIO(PARAMS), tvio.VIO(TP)
+    jv, tv = jvio.VIO(PARAMS), tvio.VIO(TP, device=CPU)
     for v in (jv, tv):
         v.init_at_time(0.0, v=np.array([0.5, 0.0, 0.0]))
         v.enable_health_monitor(min_matches=8, max_bad_frames=1)
@@ -178,7 +178,7 @@ def test_init_at_time_core_cov_matches_jax():
     core_cov = x @ x.T * 1e-3
     p, v = np.array([0.1, -0.2, 0.3]), np.array([1.0, 0.0, 0.5])
     ref = jvio.init_at_time(PARAMS, 0.25, p=p, v=v, core_cov=core_cov)
-    got = tvio.init_at_time(TP, 0.25, 1, torch.device("cpu"), p=p, v=v, core_cov=core_cov)
+    got = tvio.init_at_time(TP, 0.25, 1, CPU, p=p, v=v, core_cov=core_cov)
     assert_tree_close(got, np_tree(stack(ref, 1)), 0.0, "init")
     assert float(got[0].cov[0, 20, 20]) == 0.0
 
@@ -224,7 +224,7 @@ def test_run_collab_gain_matches_jax():
     sim = make_circle_sim(duration=duration, imu_rate=100.0, cam_rate=10.0, n_landmarks=30,
                           match_budget=PARAMS.cfg.tracks.n_matches, pixel_noise=5e-4, seed=1)
     ccfg = tcollab.CollabConfig(**{f: getattr(CCFG, f) for f in tcollab.CollabConfig._fields})
-    got = t_run_collab_gain(TP, ccfg, sim)
+    got = t_run_collab_gain(TP, ccfg, sim, device=CPU)
     assert (got.n_rounds, got.n_matches) == (ref.n_rounds, ref.n_matches)
     for name in ("ate_solo", "ate_collab", "ate_helper"):
         assert abs(getattr(got, name) - getattr(ref, name)) < 1e-6, name
@@ -234,7 +234,7 @@ def test_run_collab_gain_matches_jax():
 
 def test_matches_constructors_match_jax():
     dims = PARAMS.cfg.tracks
-    assert_tree_close(ttm.Matches.zero(dims, 1, F64), np_tree(stack(jtm.Matches.zero(dims), 1)), 0.0,
+    assert_tree_close(ttm.Matches.zero(dims, 1, F64, CPU), np_tree(stack(jtm.Matches.zero(dims), 1)), 0.0,
                       "zero")
     rng = np.random.default_rng(6)
     ids = rng.integers(-1, 30, size=(5,)).astype(np.int32)

@@ -13,7 +13,7 @@ import pytest
 import scipy.ndimage as ndi
 import torch
 
-from torch_helpers import (F64, assert_tree_close, jax_frame_indices, jax_sample_indices,
+from torch_helpers import (CPU, F64, assert_tree_close, jax_frame_indices, jax_sample_indices,
                            np_tree, orbit_frames, stack, t, to_port)
 from x_multi_agent_tpu.ops import ransac as jransac
 from x_multi_agent_tpu.utils import scene as jscene
@@ -244,7 +244,7 @@ def test_scene_matches_reference():
     for key in ref_tr:
         np.testing.assert_array_equal(tr[key], ref_tr[key], err_msg=key)
     ref_tex = jscene.make_texture(3, size=256)
-    tex = tscene.make_texture(3, size=256).numpy()
+    tex = tscene.make_texture(3, size=256, device=CPU).numpy()
     diff = np.abs(tex.astype(int) - ref_tex)
     assert diff.max() <= 1 and (diff > 0).mean() < 1e-4
     ref = np.stack([

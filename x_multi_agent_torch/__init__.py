@@ -13,7 +13,9 @@ Idiom:
     tensor (no vmap). Per-agent ``lax.cond`` under ``vmap`` becomes both
     branches + ``torch.where``;
   * every public function works on the device of the tensors it is given;
-    nothing picks a device by itself;
+    the entry points and state constructors that take ``device`` default
+    to the CUDA card (``device.resolve``) and raise where there is none:
+    CPU callers pass ``device="cpu"``;
   * filter algebra runs in full fp32 on the card: callers disable TF32
     (``torch.backends.cuda.matmul.allow_tf32 = False`` and
     ``torch.backends.cudnn.allow_tf32 = False``); ``vio.frame_step``

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from ..device import resolve
 from ..utils.tree import put, take
 from .state import CoreState
 
@@ -48,7 +49,7 @@ def unpack_core(row: torch.Tensor) -> CoreState:
 
 
 def empty_buffer(a: int, buffer_size: int, dtype=torch.float32, device=None) -> torch.Tensor:
-    buf = torch.zeros((a, buffer_size, ROW_WIDTH), dtype=dtype, device=device)
+    buf = torch.zeros((a, buffer_size, ROW_WIDTH), dtype=dtype, device=resolve(device))
     buf[..., _TIME] = -1.0  # invalid
     buf[..., _Q + 3] = 1.0  # identity quaternion (w)
     return buf

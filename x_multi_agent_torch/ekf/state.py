@@ -18,6 +18,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import resolve
 from ..ops import lie
 
 
@@ -66,6 +67,7 @@ class CoreState:
 
     @staticmethod
     def zero(a: int, dtype=torch.float32, device=None) -> "CoreState":
+        device = resolve(device)
         z3 = torch.zeros((a, 3), dtype=dtype, device=device)
         return CoreState(
             time=torch.full((a,), -1.0, dtype=dtype, device=device),
@@ -94,6 +96,7 @@ class VisionState:
     @staticmethod
     def zero(dims: StateDims, a: int, dtype=torch.float32, device=None) -> "VisionState":
         m, n = dims.n_poses, dims.n_features
+        device = resolve(device)
         return VisionState(
             p_arr=torch.zeros((a, m, 3), dtype=dtype, device=device),
             # empty slots hold identity quaternions: correct() renormalizes
@@ -132,6 +135,7 @@ class FilterState:
     def zero(dims: StateDims, a: int, dtype=torch.float32, device=None) -> "FilterState":
         from . import buffer as _rb
 
+        device = resolve(device)
         return FilterState(
             buffer=_rb.empty_buffer(a, dims.buffer_size, dtype, device),
             head=_i32(a, 0, device),

@@ -1,11 +1,13 @@
 """Build and load the hand-written CUDA kernels in ``csrc/``.
 
-All ``csrc/*.cu`` files are compiled by ``nvcc`` for ``sm_90a`` into ONE
-shared library with a plain C interface, loaded with ``ctypes``. The build
-happens at first use (never at import), into ``x_multi_agent_torch/_build/``,
-and is keyed by a hash of the sources and flags, so an edited kernel is
-rebuilt and an unchanged one is loaded as it is. A failed build raises with
-nvcc's stderr; there is no fallback.
+All ``csrc/*.cu`` files are compiled by ``nvcc`` for ``sm_90a`` (one
+``nvcc`` per source, all started together) and linked into ONE shared
+library with a plain C interface, loaded with ``ctypes``. The build happens
+at first use (never at import), into ``x_multi_agent_torch/_build/``, and is
+keyed by a hash of the sources and flags, so an edited kernel is rebuilt and
+an unchanged one is loaded as it is. A failed build raises with nvcc's
+stderr; there is no fallback. ``build_log`` keeps ptxas's report of each
+kernel's registers, shared memory and spills.
 
 Each kernel's Python wrapper owns a :class:`Kernel`, which counts the
 wrapper's launches (a plain integer: the count a run reads to prove that its
@@ -27,16 +29,17 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
 _lib = None
 build_seconds: float | None = None  # wall time of the last nvcc build (None: loaded as built)
+build_log = ""  # ptxas report of the last build
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+def _sources(csrc: Path = CSRC):
+    return sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -50,33 +53,65 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def library_path() -> Path:
+def library_path(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
     h = hashlib.sha256()
-    for src in _sources():
+    for src in _sources(csrc):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libxmat_kernels_{h.hexdigest()[:16]}.so"
+    return build_dir / f"libxmat_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile ``csrc/*.cu`` into the hashed library (no-op when present)."""
-    global build_seconds
-    out = library_path()
+def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
+    """Compile ``csrc/*.cu`` into the hashed library (no-op when present):
+    one ``nvcc -c`` per source in parallel, then one link. ``csrc`` and
+    ``build_dir`` default to this package's (another checkout's sources can
+    be built beside them for a comparison)."""
+    global build_seconds, build_log
+    out = library_path(csrc, build_dir)
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *[str(s) for s in CSRC.glob("*.cu")]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
+    objs, procs = [], []
+    for src in sorted(csrc.glob("*.cu")):
+        obj = build_dir / f"{src.stem}.{os.getpid()}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    cmds = [(cmd, proc.communicate()[1], proc.returncode) for cmd, proc in procs]
+    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp),
+           *[str(o) for o in objs]]
+    if all(rc == 0 for _, _, rc in cmds):
+        link = subprocess.run(cmd, capture_output=True, text=True)
+        cmds.append((cmd, link.stderr, link.returncode))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    for cmd, err, rc in cmds:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{err}")
     os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
+    build_log = "".join(err for _, err, _ in cmds)
     return out
+
+
+def load(path) -> ctypes.CDLL:
+    """A built kernel library with its entry points' signatures set."""
+    cdll = ctypes.CDLL(str(path))
+    for name, n_ptr, n_int, n_float in _SIGNATURES:
+        fn = getattr(cdll, name)
+        fn.argtypes = (
+            [ctypes.c_void_p] * n_ptr
+            + [ctypes.c_int] * n_int
+            + [ctypes.c_float] * n_float
+            + [ctypes.c_void_p]  # stream
+        )
+        fn.restype = ctypes.c_int
+    return cdll
 
 
 def lib() -> ctypes.CDLL:
@@ -84,17 +119,7 @@ def lib() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            cdll = ctypes.CDLL(str(build()))
-            for name, n_ptr, n_int, n_float in _SIGNATURES:
-                fn = getattr(cdll, name)
-                fn.argtypes = (
-                    [ctypes.c_void_p] * n_ptr
-                    + [ctypes.c_int] * n_int
-                    + [ctypes.c_float] * n_float
-                    + [ctypes.c_void_p]  # stream
-                )
-                fn.restype = ctypes.c_int
-            _lib = cdll
+            _lib = load(build())
     return _lib
 
 

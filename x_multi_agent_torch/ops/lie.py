@@ -7,9 +7,11 @@ from __future__ import annotations
 
 import torch
 
+from ..device import resolve
+
 
 def quat_identity(dtype=torch.float32, device=None) -> torch.Tensor:
-    return torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype, device=device)
+    return torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype, device=resolve(device))
 
 
 def quat_multiply(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:

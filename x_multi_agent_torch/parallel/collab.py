@@ -30,6 +30,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import resolve
 from ..ekf import buffer as rb
 from ..ekf import ekf as ekf_mod
 from ..ops import linalg
@@ -321,6 +322,7 @@ class KfMeta(NamedTuple):
 
     @staticmethod
     def zero(a: int, dtype=torch.float32, device=None) -> "KfMeta":
+        device = resolve(device)
         return KfMeta(
             last_kf_pos=torch.zeros((a, 3), dtype=dtype, device=device),
             frames_since=torch.zeros((a,), dtype=torch.int32, device=device),

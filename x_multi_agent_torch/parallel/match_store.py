@@ -25,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import resolve
 from ..ekf.state import StateDims, VisionState
 from ..utils import tree
 from ..utils.tree import scatter_dump, take
@@ -59,6 +60,7 @@ class MatchStore:
     def zero(dims: StateDims, sdims: StoreDims, a: int, n_collab_tracks: int = 8,
              dtype=torch.float32, device=None) -> "MatchStore":
         s, q = sdims.n_payloads, sdims.n_matches
+        device = resolve(device)
         one = make_payload(
             dims, torch.zeros((a,), dtype=dtype, device=device),
             VisionState.zero(dims, a, dtype, device),

@@ -14,6 +14,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..device import resolve
 from ..parallel import collab
 from ..utils import tree
 from ..vio import track_manager as tm
@@ -50,6 +51,7 @@ def run_collab_gain(
     imu_rate=100, cam_rate=10, n_landmarks=30,
     match_budget=params.cfg.tracks.n_matches, pixel_noise, seed)`` as the
     reference's ``run_collab_gain`` builds it."""
+    device = resolve(device)
 
     def frame_matches(f):
         def b(x):

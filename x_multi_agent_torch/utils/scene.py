@@ -12,10 +12,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve
+
 
 def make_texture(seed: int = 0, size: int = 2048, octaves: int = 5, device=None) -> torch.Tensor:
     """Multi-octave value-noise texture with speckle and sparse blotches,
     uint8 (size, size) on ``device``."""
+    device = resolve(device)
     rng = np.random.default_rng(seed)
     tex = np.zeros((size, size), np.float64)
     amp = 1.0

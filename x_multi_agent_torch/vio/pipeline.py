@@ -20,6 +20,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..device import resolve
 from ..ekf.state import (
     CoreState,
     StateDims,
@@ -104,6 +105,7 @@ class FrameDebug(NamedTuple):
     @staticmethod
     def zero(cfg: VioConfig, a: int, dtype=torch.float32, device=None) -> "FrameDebug":
         t, n = cfg.tracks, cfg.dims.n_features
+        device = resolve(device)
 
         def z(*shape, dt=dtype):
             return torch.zeros((a,) + shape, dtype=dt, device=device)

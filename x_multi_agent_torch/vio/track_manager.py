@@ -19,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import resolve
 from ..ops import lie
 from ..utils.tree import scatter_dump, take, topk_stable
 
@@ -58,6 +59,7 @@ class TrackSlots:
     @staticmethod
     def zero(dims: TrackDims, a: int, dtype=torch.float32, device=None) -> "TrackSlots":
         n, m, k = dims.n_slam, dims.n_poses, dims.n_opp
+        device = resolve(device)
         i32 = dict(dtype=torch.int32, device=device)
         return TrackSlots(
             slam_obs=torch.zeros((a, n, m, 2), dtype=dtype, device=device),
@@ -95,6 +97,7 @@ class Matches:
     @staticmethod
     def zero(dims: TrackDims, a: int, dtype=torch.float32, device=None) -> "Matches":
         j = dims.n_matches
+        device = resolve(device)
         return Matches.of(
             track_id=torch.full((a, j), -1, dtype=torch.int32, device=device),
             prev_pt=torch.zeros((a, j, 2), dtype=dtype, device=device),

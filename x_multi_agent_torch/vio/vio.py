@@ -13,6 +13,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..device import resolve
 from ..ekf import buffer as rb
 from ..ekf import ekf as ekf_mod
 from ..ekf.propagator import ImuNoise
@@ -55,6 +56,7 @@ class VioParams(NamedTuple):
 
 def make_initial_covariance(params: VioParams, device=None) -> torch.Tensor:
     """P0 = diag(sigma^2) on the core block; pose/feature blocks start at 0."""
+    device = resolve(device)
     dims = params.cfg.dims
     deg = np.pi / 180.0
     sig = np.concatenate([
@@ -79,6 +81,7 @@ def init_at_time(
     dt = params.tdtype
     dims = params.cfg.dims
     a = n_agents
+    device = resolve(device)
 
     def vec(x, default):
         t = default if x is None else torch.as_tensor(np.asarray(x), dtype=dt, device=device)
@@ -136,7 +139,7 @@ class VIO:
     def __init__(self, params: VioParams = VioParams(), self_init: bool = False,
                  debug: bool = False, device=None):
         self.params = params
-        self.device = torch.device("cpu" if device is None else device)
+        self.device = resolve(device)
         self.fs: Optional[FilterState] = None
         self.slots: Optional[tm.TrackSlots] = None
         self._accel_batch = []
@@ -185,7 +188,7 @@ class VIO:
         core = self.tail_state()
         vals = {k: getattr(core, k)[0].cpu().numpy() for k in ("p", "v", "q", "b_w", "b_a")}
         core_cov = self.fs.cov[0, :15, :15].cpu().numpy()
-        init = make_initial_covariance(self.params).numpy()[:15, :15]
+        init = make_initial_covariance(self.params, "cpu").numpy()[:15, :15]
         if self._reinit_streak >= 1:
             vals["v"] = np.zeros(3)
             vals["b_w"] = np.zeros(3)

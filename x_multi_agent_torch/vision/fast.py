@@ -58,6 +58,23 @@ def fast_score(img: torch.Tensor, threshold: float) -> torch.Tensor:
     return torch.where(interior, score, torch.zeros_like(score))
 
 
+def compass_candidates(img: torch.Tensor, threshold: float) -> torch.Tensor:
+    """(..., H, W) bool: interior pixels where two cyclically adjacent
+    compass taps (circle taps 0, 4, 8, 12) both differ from the centre by
+    more than ``threshold`` in one polarity. Every 9-arc holds such a pair,
+    so every other pixel's :func:`fast_score` is 0: K1 scores only these."""
+    h, w = img.shape[-2:]
+    d = [torch.roll(img, (-CIRCLE[k][0], -CIRCLE[k][1]), dims=(-2, -1)) - img
+         for k in (0, 4, 8, 12)]
+    cand = torch.zeros(img.shape, dtype=torch.bool, device=img.device)
+    for k in range(4):
+        a, b = d[k], d[(k + 1) % 4]
+        cand = cand | ((a > threshold) & (b > threshold)) | ((-a > threshold) & (-b > threshold))
+    yy = torch.arange(h, device=img.device)[:, None]
+    xx = torch.arange(w, device=img.device)[None, :]
+    return cand & (yy >= 3) & (yy < h - 3) & (xx >= 3) & (xx < w - 3)
+
+
 def nms3(score: torch.Tensor) -> torch.Tensor:
     """3x3 non-max suppression of (..., H, W) score maps: keep a pixel that
     is >= every in-image neighbour (out-of-image neighbours are -inf)."""

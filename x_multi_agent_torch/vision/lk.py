@@ -100,9 +100,11 @@ def _track_level(
     n_iters: int,
     min_eig_thr: float,
     eps: float = 0.01,
+    return_iters: bool = False,
 ):
     """One pyramid level of LK for all features (plain version of K2).
-    Returns (flow (A,K,2), ok (A,K))."""
+    Returns (flow (A,K,2), ok (A,K)), and with ``return_iters`` also the
+    Gauss-Newton steps each feature took (A,K)."""
     w = 2 * half_win + 1
     dtype = img_prev.dtype
     base, slab = _level_sampler(img_prev.shape, half_win, img_prev.device)
@@ -116,8 +118,10 @@ def _track_level(
     # OpenCV termcrit semantics: apply dnu, stop once |dnu|^2 <= eps^2
     nu = guess.to(dtype)
     d2 = torch.full_like(gxx, 1e9)
+    iters = torch.zeros(gxx.shape, dtype=torch.int32, device=gxx.device)
     for _ in range(n_iters):
         active = d2 > eps * eps
+        iters = iters + active.to(torch.int32)
         byc, bxc, fxc, fyc = base(pt + nu)
         patch_cur = _interp_patch(slab(img_cur, byc, bxc), fxc, fyc, w)
         di = patch_prev - patch_cur
@@ -128,7 +132,7 @@ def _track_level(
         dnu = torch.where(active[..., None], dnu, torch.zeros_like(dnu))
         nu = nu + dnu
         d2 = torch.where(active, torch.sum(dnu * dnu, dim=-1), d2)
-    return nu, ok
+    return (nu, ok, iters) if return_iters else (nu, ok)
 
 
 def gate_margin(dx_prev, dy_prev, pts_prev, half_win: int, min_eig_thr: float):

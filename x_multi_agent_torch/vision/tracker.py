@@ -13,6 +13,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..device import resolve
 from ..ops.ransac import draw_sample_indices, ransac_inliers
 from ..place_recognition import descriptors
 from ..utils.tree import scatter_dump, take
@@ -56,6 +57,7 @@ class TrackerState:
     def zero(params: TrackerParams, a: int, h: int, w: int, dtype=torch.float32,
              device=None) -> "TrackerState":
         f = params.budget
+        device = resolve(device)
         return TrackerState(
             pts=torch.zeros((a, f, 2), dtype=dtype, device=device),
             ids=torch.full((a, f), -1, dtype=torch.int32, device=device),
