@@ -60,10 +60,29 @@ Phases (any failure raises, so the exit code is non-zero):
      ``process_other_measurements``); ms per frame, keyframes, hits, fused
      and stored matches, matches consumed, bytes against full broadcast;
      asserts >= 90 % applied, no re-init, finite tails, a keyframe, a hit,
-     a fused match, K1 on a (1, 480, 640) frame and K2 launched.
+     a fused match, K1 on a (1, 480, 640) frame and K2 launched;
+  9. the thermal facade: agent 0's 30 frames of phase 6 degraded on the card
+     (``scene.degrade_frames``: gains a = 1 + 0.01 k, b = 0.002 k, vignette
+     0.06, noise 0.006 from a seeded generator, uint8) through the facade
+     with ``enable_photometric(n_obs=80)``, global gains only (run A) and
+     with the spatial map (``cell_px=40, spatial_every=10``, run B), the
+     health monitor on; ms per frame, the photometric update's own ms (CUDA
+     events) and launches per frame (host launch calls in a
+     ``torch.profiler`` trace of 10 further updates, which also count the
+     synchronizing operations), the gains against the baked ones at frames
+     10, 20 and 30; asserts >= 90 % applied, no re-init, a finite tail, the
+     gains finite with a - b > 0 on every frame, K1 on a (1, 480, 640)
+     frame, K2 >= 3 launches per frame, no synchronizing operation in an
+     update that solves no map, and in run B a solved finite map; in run A
+     the corrected images of the last 10 frames closer to the clean render
+     than the raw ones; the inputs of run B's last ``process_frame`` and
+     last spatial solve through the port on the CPU in float64: |da|, |db|
+     <= 1e-4, the maps within 1e-3 once each connected component of the
+     seen cells takes its own fitted offset (the centred difference and the
+     mean offset printed).
 
 The last three lines of standard output are the kernels' JSON record (the
-launch counts summed over the paths of phases 3 and 5-8, each read from 0
+launch counts summed over the paths of phases 3 and 5-9, each read from 0
 around its path; phase 4's times per launch), the card's ``nvidia-smi``
 name and power limit, and the result JSON.
 """
@@ -79,6 +98,11 @@ ROUND_EVERY = 5  # collaborative rounds after every 5th frame
 N_FACADE = N_WARM + N_TIMED
 N_RC, RC_ROUNDS = 20, (15, 20)  # request-response fleet: frames, rounds after these
 N_WORDS, EXCHANGE_EVERY = 64, 3
+# phase 9: the reference's thermal e2e drift, the accuracy report's vignette
+# and noise, its calibration budget; spatial cells and cadence
+THERMAL_GAINS = [(1.0 + 0.01 * k, 0.002 * k) for k in range(N_FACADE)]
+THERMAL_VIGNETTE, THERMAL_NOISE, PHOTO_OBS = 0.06, 0.006, 80
+CELL_PX, SPATIAL_EVERY = 40, 10
 # one H100 SXM at its 700 W limit (NVIDIA's data sheet): HBM3 bytes/s, fp32
 # flop/s outside the tensor cores (an FMA counts 2), and fp32 instructions/s
 # that are not FMAs (min, max, compare, add: one per lane per clock)
@@ -489,6 +513,166 @@ def run_facade_pair(torch, params, tparams, cam, frames, imu, start, words, devi
     return vs, rec
 
 
+def _launch_calls(prof) -> int:
+    """Kernel launches of a ``torch.profiler`` trace, counted on the host
+    (the runtime's launch calls; the tracer can drop device events)."""
+    return sum(1 for e in prof.events() if e.name in ("cudaLaunchKernel", "cuLaunchKernel",
+                                                         "cudaLaunchKernelExC", "cuLaunchKernelEx"))
+
+
+def run_thermal(torch, params, tparams, cam, raw, clean, imu, start, spatial, device):
+    """Degraded frames ``raw`` (n, H, W) uint8 and host IMU windows (numpy,
+    (n, L, ...)) through one facade with photometric calibration
+    (``spatial`` or global only). Returns (the facade, record)."""
+    import warnings
+
+    from x_multi_agent_torch.photometric import calib
+    from x_multi_agent_torch.vio.vio import VIO
+
+    times, seqs, w_ms, a_ms = imu
+    v = VIO(params, device=device)
+    v.init_at_time(0.0, p=start[0], v=start[1], q=start[2])
+    v.setup_tracker(tparams, cam, raw.shape[-2], raw.shape[-1], generator=0)
+    v.enable_health_monitor()
+    v.enable_photometric(n_obs=PHOTO_OBS, spatial=spatial, cell_px=CELL_PX,
+                         spatial_every=SPATIAL_EVERY, generator=5)
+    update, solve_fn, frame_fn = v._photometric_update, calib.estimate_spatial_parameters, calib.process_frame
+    last = {}
+    upd_events, gains_before, gains_after = [], [], []
+
+    def timed_update(raw_img):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        update(raw_img)
+        ev[1].record()
+        upd_events.append(ev)
+
+    def keep_frame(*args, **kwargs):  # the inputs of the last process_frame
+        last["frame"] = (args, kwargs)
+        return frame_fn(*args, **kwargs)
+
+    def keep_solve(*args, **kwargs):  # the inputs and output of the last solve
+        out = solve_fn(*args, **kwargs)
+        last["solve"] = (args, kwargs, out)
+        return out
+
+    v._photometric_update = timed_update
+    calib.process_frame, calib.estimate_spatial_parameters = keep_frame, keep_solve
+    try:
+        def run():
+            n_applied = 0
+            for k in range(raw.shape[0]):
+                v.process_imu_batch(times[k], seqs[k], w_ms[k], a_ms[k])
+                gains_before.append(v.photo.state.current())
+                n_applied += v.process_image_measurement(float(times[k][-1]), k, raw[k])
+                gains_after.append(v.photo.state.current())
+            return n_applied
+
+        n_applied, ms = _timed(torch, run)
+    finally:
+        calib.process_frame, calib.estimate_spatial_parameters = frame_fn, solve_fn
+    n = raw.shape[0]
+    rec = {"applied": n_applied, "ms": ms, "reinits": v.n_reinits,
+           "update_ms": sum(s.elapsed_time(e) for s, e in upd_events) / n,
+           "gains": torch.stack(gains_after).double().cpu(), "last": last,
+           "solved": "solve" in last}
+    g = torch.stack(gains_before)  # the gains each frame was corrected with
+    tail = range(n - 10, n)
+    rec["err_corrected"] = float(torch.stack([
+        (calib.correct_image(raw[k], g[k, 0], g[k, 1]).double() - clean[k].double()).abs().mean()
+        for k in tail]).mean())
+    rec["err_raw"] = float(torch.stack([(raw[k].double() - clean[k].double()).abs().mean()
+                                        for k in tail]).mean())
+    if v.photo.ps is not None:
+        rec["map_finite"] = bool(torch.isfinite(v.photo.ps).all())
+        rec["map_range"] = [float(v.photo.ps.min()), float(v.photo.ps.max())]
+
+    # 10 further updates on the last frame under the profiler: launches per
+    # update, and the synchronizing operations of each (warnings of the
+    # sync debug mode)
+    from torch.profiler import ProfilerActivity, profile
+
+    syncs = []
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(10):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode(1)
+                try:
+                    due = (v.photo.frame + 1) % SPATIAL_EVERY == 0 and spatial
+                    update(raw[-1])
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            syncs.append((due, [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+                                if "called a synchronizing" in str(w.message)]))
+        torch.cuda.synchronize()
+    rec["update_launches"] = _launch_calls(prof) / 10
+    rec["syncs"] = syncs
+    return v, rec
+
+
+def _components(n: int, sid_hist, sid_cur, valid, seen):
+    """The connected components of the seen cells under the valid rows'
+    (sid_hist, sid_cur) edges: a list of (n,) float64 indicator vectors."""
+    import numpy as np
+
+    parent = list(range(n))
+
+    def root(i):
+        while parent[i] != i:
+            parent[i] = parent[parent[i]]
+            i = parent[i]
+        return i
+
+    v = valid.cpu().numpy()
+    for i, j in zip(sid_hist.cpu().numpy()[v], sid_cur.cpu().numpy()[v]):
+        parent[root(int(i))] = root(int(j))
+    seen = seen.cpu().numpy()
+    roots = sorted({root(i) for i in range(n) if seen[i]})
+    return [np.array([float(seen[i] and root(i) == r) for i in range(n)]) for r in roots]
+
+
+def photo_card_vs_cpu(torch, last) -> dict:
+    """Run B's last ``process_frame`` and last spatial solve, re-run through
+    the port on the CPU in float64 on the card's inputs: |da|, |db|; the
+    largest difference of the centred maps and the maps' mean offset (card
+    minus CPU); and the largest difference left once each connected
+    component of the seen cells takes its own offset (the Laplacian's null
+    directions, fixed only by its 1e-6 term; the smoothing spreads a
+    component's offset unevenly, so centring does not remove it), with
+    those offsets fitted by least squares."""
+    from x_multi_agent_torch.photometric import calib
+    from x_multi_agent_torch.utils.tree import map_leaves
+
+    def cpu64(x):
+        x = x.cpu()
+        return x.double() if x.is_floating_point() else x
+
+    args, kwargs = last["frame"]
+    card = calib.process_frame(*args, **kwargs)
+    cpu = calib.process_frame(*[map_leaves(cpu64, a) for a in args], **kwargs)
+    out = {"da": abs(float(card[1]) - float(cpu[1])), "db": abs(float(card[2]) - float(cpu[2]))}
+    args, kwargs, cells = last["solve"]
+    ncx, ncy, sid_hist, sid_cur, rhs, valid = args
+    ref = calib.estimate_spatial_parameters(*[map_leaves(cpu64, a) for a in args], **kwargs)
+    got = cells.double().cpu()
+    out["map_offset"] = float(got.mean() - ref.mean())
+    out["map_centred_err"] = float(((got - got.mean()) - (ref - ref.mean())).abs().max())
+    out["map_scale"] = float((ref - ref.mean()).abs().max())
+    n = ncx * ncy
+    _, seen = calib.solve_cell_offsets(n, sid_hist.cpu(), sid_cur.cpu(), cpu64(rhs), valid.cpu())
+    comps = _components(n, sid_hist, sid_cur, valid, seen)
+    basis = torch.stack([calib.gpr_smooth(torch.from_numpy(c), seen, ncx, ncy, **kwargs).reshape(-1)
+                         for c in comps], 1)
+    diff = (got - ref).reshape(-1, 1)
+    offsets = torch.linalg.lstsq(basis, diff).solution
+    out["components"] = [int(c.sum()) for c in comps]
+    out["component_offsets"] = offsets[:, 0].tolist()
+    out["map_err_per_component"] = float((diff - basis @ offsets).abs().max())
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -742,6 +926,61 @@ def main() -> int:
         raise AssertionError("the facade pair selected no keyframe, had no hit or fused nothing")
     if launches["fast"] < 1 or (1, H, W) not in shapes or launches["lk"] < 3 * N_FACADE:
         raise AssertionError(f"facade pair path missed a kernel: {launches}, {shapes}")
+    _no_jax()
+
+    # ---- 9. the thermal facade ---------------------------------------------
+    from x_multi_agent_torch.utils import scene
+
+    clean = frames[:N_FACADE, 0]
+    raw = scene.degrade_frames(clean, THERMAL_GAINS, THERMAL_VIGNETTE, THERMAL_NOISE,
+                               torch.Generator(device=dev).manual_seed(9))
+    host_imu = tuple(x[:N_FACADE, 0].cpu().numpy() for x in imu)
+    thermal = {}
+    for name, spatial in (("A", False), ("B", True)):
+        shapes.clear()
+        fast.fast_score_nms = watch
+        counts.start()
+        try:
+            v, tr = run_thermal(torch, params, tparams, cam, raw, clean, host_imu,
+                                (p0[0], v0[0], q0[0]), spatial, dev)
+        finally:
+            fast.fast_score_nms = dispatch
+        launches = counts.read()
+        thermal[name] = tr
+        g = tr["gains"]
+        at = {f: [round(float(g[f - 1, 0]), 6), round(float(g[f - 1, 1]), 6)] for f in (10, 20, 30)}
+        print(f"thermal facade run {name} (spatial {spatial}): 1 agent x {N_FACADE} frames: "
+              f"{tr['ms'] / N_FACADE:.3f} ms/frame (phase 6: {elapsed_ms / N_FACADE:.3f}); "
+              f"photometric update {tr['update_ms']:.3f} ms/frame, {tr['update_launches']:.1f} "
+              f"launches per update; updates applied {tr['applied']}/{N_FACADE}; re-inits "
+              f"{tr['reinits']}; gains after frames 10/20/30 {at} against baked "
+              f"{[THERMAL_GAINS[f - 1] for f in (10, 20, 30)]}; mean |corrected - clean| "
+              f"{tr['err_corrected']:.3f} vs |raw - clean| {tr['err_raw']:.3f} gray levels over "
+              f"the last 10 frames; synchronizing calls per extra update (solve due, call sites) {tr['syncs']}; "
+              f"map solved {tr['solved']} {tr.get('map_range')}; K1 shapes {sorted(set(shapes))}; "
+              f"launches K1 {launches['fast']} K2 {launches['lk']} ({card})")
+        if tr["applied"] < 0.9 * N_FACADE or tr["reinits"] != 0:
+            raise AssertionError(f"thermal facade {name}: updates not applied")
+        if not bool(torch.isfinite(v.tail_state().p).all()):
+            raise AssertionError(f"thermal facade {name}: tail not finite")
+        if not bool(torch.isfinite(g).all()) or not bool((g[:, 0] - g[:, 1] > 0).all()):
+            raise AssertionError(f"thermal facade {name}: gains not finite or a - b <= 0")
+        if launches["fast"] < 1 or (1, H, W) not in shapes or launches["lk"] < 3 * N_FACADE:
+            raise AssertionError(f"thermal facade {name} missed a kernel: {launches}, {shapes}")
+        if any(where for due, where in tr["syncs"] if not due):
+            raise AssertionError(f"thermal facade {name}: a host wait in the update: {tr['syncs']}")
+        if spatial and not (tr["solved"] and tr["map_finite"]):
+            raise AssertionError("thermal facade B: the spatial map was not solved or not finite")
+    if not thermal["A"]["err_corrected"] < thermal["A"]["err_raw"]:
+        raise AssertionError("thermal facade A: the correction moved the images away from clean")
+    cmp = photo_card_vs_cpu(torch, thermal["B"]["last"])
+    print(f"thermal card vs CPU float64 (run B's last inputs): |da| {cmp['da']:.3g}, |db| "
+          f"{cmp['db']:.3g}, centred map max diff {cmp['map_centred_err']:.3g} (map scale "
+          f"{cmp['map_scale']:.3g}), mean offset {cmp['map_offset']:.3g}; cells per connected "
+          f"component {cmp['components']}, their offsets {cmp['component_offsets']}, map max diff "
+          f"with those offsets removed {cmp['map_err_per_component']:.3g} ({card})")
+    if cmp["da"] > 1e-4 or cmp["db"] > 1e-4 or cmp["map_err_per_component"] > 1e-3:
+        raise AssertionError(f"thermal facade: the card's calibration disagrees with the CPU's: {cmp}")
     _no_jax()
 
     kernels = []

@@ -12,7 +12,8 @@ from x_multi_agent_torch.device import resolve
 from x_multi_agent_torch.ekf import buffer, state
 from x_multi_agent_torch.ops import lie
 from x_multi_agent_torch.parallel import collab, match_store
-from x_multi_agent_torch.utils import scene
+from x_multi_agent_torch.photometric import calib
+from x_multi_agent_torch.utils import ref_ingest, scene
 from x_multi_agent_torch.utils.collab_eval import run_collab_gain
 from x_multi_agent_torch.vio import pipeline, vio
 from x_multi_agent_torch.vio import track_manager as tm
@@ -41,6 +42,11 @@ BUILDERS = {
     "TrackSlots.zero": lambda **kw: tm.TrackSlots.zero(PARAMS.cfg.tracks, 2, **kw).slam_id.device,
     "Matches.zero": lambda **kw: tm.Matches.zero(PARAMS.cfg.tracks, 2, **kw).valid.device,
     "quat_identity": lambda **kw: lie.quat_identity(**kw).device,
+    "PhotoState.zero": lambda **kw: calib.PhotoState.zero(calib.PhotoDims(), **kw).params_pt.device,
+    "thermal_vignette": lambda **kw: scene.thermal_vignette(8, 8, 0.06, **kw).device,
+    "to_device_matches": lambda **kw: ref_ingest.to_device_matches(
+        ref_ingest.import_matches(np.arange(10.0), configs.flagship_camera(16, 16)), 4,
+        **kw).cur_pt.device,
 }
 
 

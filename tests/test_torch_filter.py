@@ -179,10 +179,16 @@ def _sim_matches(sim, step, rng, j):
     )
 
 
-def test_match_driven_filter_matches_jax():
+@pytest.mark.parametrize("merge_short", [True, False])
+def test_match_driven_filter_matches_jax(merge_short):
     """IMU batch + visual update (track manager, state manager, MSCKF /
-    MSCKF-SLAM / SLAM rows, Kalman update, feature init) over 12 frames."""
+    MSCKF-SLAM / SLAM rows, Kalman update, feature init) over 12 frames;
+    with ``merge_short_into_stack=False`` the dead tracks' rows are applied
+    in their own update before the slide (the random drops make such
+    tracks on most frames)."""
     jp, tp = _params()
+    jp = jp._replace(cfg=jp.cfg._replace(merge_short_into_stack=merge_short))
+    tp = tp._replace(cfg=tp.cfg._replace(merge_short_into_stack=merge_short))
     j = jp.cfg.tracks.n_matches
     sim = make_circle_sim(duration=2.0, imu_rate=100.0, cam_rate=10.0, n_landmarks=40,
                           match_budget=j, pixel_noise=1e-3, seed=0)
@@ -249,3 +255,72 @@ def test_feature_init_paths_match_jax():
                                              0.5, 0.005, 0.25)
     assert_tree_close(gv, stack(np_tree(jv), 1), 1e-12)
     _close(gc[0], jc, 1e-12)
+
+
+def test_standalone_state_steps_match_jax():
+    """``remove_features`` -> ``reparametrize_features`` -> ``slide_window``
+    -> ``augment_pose`` one sandwich each, composed as the reference's
+    fused-manage test composes them (tests/test_state_manager_fused.py),
+    on two agents with different states, against JAX step by step and
+    against the port's own fused ``manage``."""
+    from x_multi_agent_tpu.ekf.state import CoreState, StateDims
+
+    dims = StateDims(n_poses=6, n_features=5, buffer_size=16)
+    rng = np.random.default_rng(8)
+    lost = np.array([[True, False, False, True, False], [False, False, True, False, False]])
+    q_ic, p_ic = np.array([0.0, 0.0, 0.0, 1.0]), np.array([0.1, -0.05, 0.02])
+    refs, states = [], []
+    for a in range(2):
+        q = rng.normal(size=4)
+        core = CoreState(
+            time=jnp.asarray(1.0), seq=jnp.asarray(5, jnp.int32),
+            p=jnp.asarray(rng.normal(size=3)), v=jnp.asarray(rng.normal(size=3)),
+            q=jnp.asarray(q / np.linalg.norm(q)), b_w=jnp.asarray(rng.normal(size=3) * 0.01),
+            b_a=jnp.asarray(rng.normal(size=3) * 0.01), w_m=jnp.zeros(3), a_m=jnp.zeros(3),
+        )
+        qs = rng.normal(size=(dims.n_poses, 4))
+        anchors = rng.integers(0, dims.n_poses, size=dims.n_features)
+        anchors[a] = 0  # force a reparametrization
+        vision = VisionState(
+            p_arr=jnp.asarray(rng.normal(size=(dims.n_poses, 3))),
+            q_arr=jnp.asarray(qs / np.linalg.norm(qs, axis=1, keepdims=True)),
+            f_arr=jnp.asarray(rng.normal(size=(dims.n_features, 3)) + 2.0),
+            anchor_idx=jnp.asarray(anchors, jnp.int32),
+            n_valid_poses=jnp.asarray(6 - a, jnp.int32),
+            n_valid_features=jnp.asarray(4 + a, jnp.int32),
+        )
+        m = rng.normal(size=(dims.d, dims.d))
+        cov = jnp.asarray(m @ m.T / dims.d + np.eye(dims.d) * 1e-3)
+        states.append((core, vision, cov))
+        v, c, perm, nk = jsm.remove_features(dims, vision, cov, jnp.asarray(lost[a]))
+        steps = [(v, c, perm, nk)]
+        v, c = jsm.reparametrize_features(dims, v, c)
+        steps.append((v, c))
+        v, c = jsm.slide_window(dims, v, c)
+        steps.append((v, c))
+        steps.append(jsm.augment_pose(dims, core, v, c, jnp.asarray(q_ic), jnp.asarray(p_ic)))
+        refs.append(steps)
+
+    def batch(k):
+        return jax.tree.map(lambda *xs: np.stack([np.asarray(x) for x in xs]),
+                            *[s[k] for s in states])
+
+    tdims = tsm.StateDims(*dims)
+    tcore, tvis, tcov = to_port(batch(0)), to_port(batch(1)), t(batch(2))
+    tq, tp_ = t(q_ic), t(p_ic)
+    got = [tsm.remove_features(tdims, tvis, tcov, t(lost))]
+    got.append(tsm.reparametrize_features(tdims, *got[-1][:2]))
+    got.append(tsm.slide_window(tdims, *got[-1][:2]))
+    got.append(tsm.augment_pose(tdims, tcore, got[-1][0], got[-1][1], tq, tp_))
+    for k, step in enumerate(got):
+        ref = jax.tree.map(lambda *xs: np.stack([np.asarray(x) for x in xs]),
+                           *[r[k] for r in refs])
+        assert_tree_close(step[0], ref[0], 1e-12, f"vision[{k}]")
+        _close(step[1], ref[1], 1e-10)
+        for g, r in zip(step[2:], ref[2:]):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    v_f, cov_f, perm_f, nk_f = tsm.manage(tdims, tcore, tvis, tcov, t(lost), tq, tp_)
+    assert_tree_close(v_f, ref[0], 1e-12, "fused vision")  # ref: the last step's
+    _close(cov_f, ref[1], 1e-10)
+    np.testing.assert_array_equal(perm_f.numpy(), got[0][2].numpy())
+    np.testing.assert_array_equal(nk_f.numpy(), got[0][3].numpy())

@@ -150,6 +150,33 @@ def jax_keyed_sampler(n_hyp=200):
     return draw
 
 
+def jax_gain_indices(key, valid, dtype=jnp.float64, n_hyp=32):
+    """The reference's hypothesis draw of ``estimate_gains_ransac``
+    (calib.py:84-89): (n_hyp, 4) indices uniform over ``valid`` (J,)."""
+    probs = jnp.asarray(valid).astype(dtype)
+    probs = probs / jnp.maximum(probs.sum(), 1.0)
+    return np.asarray(jax.random.categorical(key, jnp.log(jnp.maximum(probs, 1e-30)),
+                                             shape=(n_hyp, 4)))
+
+
+def jax_photo_indices(valid, frame, dtype=jnp.float64):
+    """The draws of the reference facade's ``process_frame`` call: key
+    ``PRNGKey(frame)`` split over the histories (vio.py:479, calib.py:162),
+    one (32, 4) draw per history of ``valid`` (Fh, J). Returns (Fh, 32, 4)."""
+    keys = jax.random.split(jax.random.PRNGKey(frame), valid.shape[0])
+    return np.stack([jax_gain_indices(k, v, dtype) for k, v in zip(keys, np.asarray(valid))])
+
+
+def jax_photo_sampler(dtype=jnp.float64):
+    """A sampler for the port facade's photometric calibration that repeats
+    the reference's keyed draws (:func:`jax_photo_indices`)."""
+
+    def draw(valid, frame):
+        return torch.from_numpy(jax_photo_indices(valid.cpu().numpy(), frame, dtype)).to(valid.device)
+
+    return draw
+
+
 def jax_frame_indices(jp, state, imgs):
     """Regenerate, per agent, the RANSAC indices the reference's
     track_frame_batch draws inside _track_core."""

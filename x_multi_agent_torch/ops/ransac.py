@@ -73,15 +73,16 @@ def sampson_dist(f: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor) -> torch.T
     return num / torch.clamp(den, min=1e-12)
 
 
-def draw_sample_indices(mask: torch.Tensor, n_hypotheses: int, generator: torch.Generator):
-    """(A, S, 8) sample indices per agent, with replacement, uniform over
-    the valid entries of ``mask`` (A, N) (uniform over all when none is
-    valid, as the reference's floored log-probabilities give)."""
+def draw_sample_indices(mask: torch.Tensor, n_hypotheses: int, generator: torch.Generator,
+                        sample_size: int = 8):
+    """(A, S, sample_size) sample indices per row of ``mask`` (A, N), with
+    replacement, uniform over the row's valid entries (uniform over all
+    when none is valid, as the reference's floored log-probabilities give)."""
     a, n = mask.shape
     w = mask.to(torch.float32)
     w = torch.where(w.sum(-1, keepdim=True) > 0, w, torch.ones_like(w))
-    idx = torch.multinomial(w, n_hypotheses * 8, replacement=True, generator=generator)
-    return idx.reshape(a, n_hypotheses, 8)
+    idx = torch.multinomial(w, n_hypotheses * sample_size, replacement=True, generator=generator)
+    return idx.reshape(a, n_hypotheses, sample_size)
 
 
 def generator_sampler(generator: torch.Generator, n_hypotheses: int = 200):

@@ -54,6 +54,43 @@ def map_leaves(fn, obj):
     return obj
 
 
+_SCALARS = (bool, int, float)
+
+
+def leaves(obj) -> list:
+    """The leaves of a state container, depth first in field order: tensors
+    and Python scalars (a ring pointer, a frame count); ``None`` is an empty
+    subtree."""
+    if isinstance(obj, (torch.Tensor,) + _SCALARS):
+        return [obj]
+    if dataclasses.is_dataclass(obj):
+        return [x for f in dataclasses.fields(obj) for x in leaves(getattr(obj, f.name))]
+    if isinstance(obj, tuple):
+        return [x for v in obj for x in leaves(v)]
+    if obj is None:
+        return []
+    raise TypeError(f"not a state container: {type(obj).__name__}")
+
+
+def unflatten(template, values):
+    """Rebuild ``template``'s structure from ``values`` in :func:`leaves`
+    order."""
+    it = iter(values)
+
+    def build(obj):
+        if isinstance(obj, (torch.Tensor,) + _SCALARS):
+            return next(it)
+        if dataclasses.is_dataclass(obj):
+            return dataclasses.replace(
+                obj, **{f.name: build(getattr(obj, f.name)) for f in dataclasses.fields(obj)})
+        if isinstance(obj, tuple):
+            vals = [build(v) for v in obj]
+            return type(obj)(*vals) if hasattr(obj, "_fields") else tuple(vals)
+        return obj
+
+    return build(template)
+
+
 def cat(objs):
     """Concatenate same-structured state containers along the agent axis."""
     first = objs[0]

@@ -164,8 +164,6 @@ def visual_update(
     Returns (core, vision, cov, slots), with a store (core, vision, cov,
     slots, store, n_collab (A,)), and a :class:`FrameDebug` after them with
     ``return_debug``."""
-    if not cfg.merge_short_into_stack:
-        raise NotImplementedError("only merge_short_into_stack=True is ported")
     dims = cfg.dims
     m, n = dims.n_poses, dims.n_features
     d = dims.d
@@ -187,6 +185,20 @@ def visual_update(
             cfg, collab_cfg, core, vision, cov, slots, frame, store
         )
 
+    # ---------------- 1c. unmerged short-MSCKF update (pre-slide poses) ---
+    if not cfg.merge_short_into_stack:
+        short_rows, _ = msckf.build(
+            frame.short_obs, frame.short_mask, vision.q_arr, vision.p_arr, cov, cfg.sigma_img, n,
+            max_iter=cfg.tri_max_iter, oc=cfg.obs_constrained,
+        )
+        corr_short, cov_short = _apply_rows(cov, *short_rows, torch.zeros_like(cov[:, 0]))
+        # agents with no dead track skip it (lax.cond in the reference)
+        have_short = frame.short_valid.any(-1)
+        corr_short = torch.where(have_short[:, None], corr_short, 0.0)
+        cov = torch.where(have_short[:, None, None], cov_short, cov)
+        core = correct_core(core, corr_short)
+        vision = correct_vision(vision, corr_short, dims)
+
     # ---------------- 2. state management ---------------------------------
     vision, cov, perm, n_keep = sm.manage(dims, core, vision, cov, frame.lost_slam, q_ic, p_ic)
     slots = tm.apply_slam_compaction(slots, perm, n_keep)
@@ -197,14 +209,17 @@ def visual_update(
     slam_len = torch.where(keep_sorted, slots.slam_length, 0)
     cur_pose_idx = m - 1  # the window is right-aligned
 
-    # merged short rows: reindex the dead tracks' observations across the
-    # slide (old window slot k+1 -> new slot k)
-    sh_obs = torch.cat([frame.short_obs[:, :, 1:], torch.zeros_like(frame.short_obs[:, :, :1])], 2)
-    sh_mask = torch.cat(
-        [frame.short_mask[:, :, 1:], torch.zeros_like(frame.short_mask[:, :, :1])], 2
-    ) & frame.short_valid[..., None]
-    stack_obs = torch.cat([frame.msckf_obs, sh_obs], dim=1)
-    stack_mask = torch.cat([frame.msckf_mask, sh_mask], dim=1)
+    if cfg.merge_short_into_stack:
+        # merged short rows: reindex the dead tracks' observations across
+        # the slide (old window slot k+1 -> new slot k)
+        sh_obs = torch.cat([frame.short_obs[:, :, 1:], torch.zeros_like(frame.short_obs[:, :, :1])], 2)
+        sh_mask = torch.cat(
+            [frame.short_mask[:, :, 1:], torch.zeros_like(frame.short_mask[:, :, :1])], 2
+        ) & frame.short_valid[..., None]
+        stack_obs = torch.cat([frame.msckf_obs, sh_obs], dim=1)
+        stack_mask = torch.cat([frame.msckf_mask, sh_mask], dim=1)
+    else:
+        stack_obs, stack_mask = frame.msckf_obs, frame.msckf_mask
     k_ms = stack_obs.shape[1]
 
     # ---------------- 3. IEKF loop: stacked update -------------------------

@@ -2,8 +2,10 @@
 ``x_multi_agent_tpu.vio.state_manager``).
 
 Lost-SLAM-feature excision, anchor reparametrization (Li RSS'12 eq. 38),
-sliding-window shift and pose augmentation, each as a (D, D) transform,
-composed into ONE sandwich ``T @ cov @ T.T``; plus MSCKF-SLAM (Li 2012) and
+sliding-window shift and pose augmentation, each as a (D, D) transform:
+applied alone by :func:`remove_features`, :func:`reparametrize_features`,
+:func:`slide_window` and :func:`augment_pose`, and composed into ONE
+sandwich ``T @ cov @ T.T`` by :func:`manage`; plus MSCKF-SLAM (Li 2012) and
 standard inverse-depth feature initialization. Batched over agents (A, ...).
 """
 from __future__ import annotations
@@ -75,6 +77,18 @@ def _remove_features_t(dims: StateDims, vision: VisionState, lost, dtype):
     t = _perm_matrix(idx, zero, dims.d, dtype)
     vision = dataclasses.replace(vision, f_arr=f_arr, anchor_idx=anchor, n_valid_features=n_keep)
     return vision, t, perm, n_keep
+
+
+def _sandwich(t, cov):
+    return t @ cov @ t.transpose(-1, -2)
+
+
+def remove_features(dims: StateDims, vision: VisionState, cov, lost):
+    """Excise lost SLAM features (A, N) and compact the survivors to the
+    front. Returns (vision, cov, perm, n_keep); apply ``perm`` / ``n_keep``
+    to the track slots too."""
+    vision, t, perm, n_keep = _remove_features_t(dims, vision, lost, cov.dtype)
+    return vision, _sandwich(t, cov), perm, n_keep
 
 
 # ---------------------------------------------------------------------------
@@ -157,6 +171,13 @@ def _reparametrize_t(dims: StateDims, vision: VisionState, dtype):
     return dataclasses.replace(vision, f_arr=f_arr, anchor_idx=anchor), jmat
 
 
+def reparametrize_features(dims: StateDims, vision: VisionState, cov):
+    """Re-anchor the features anchored at window slot 0 to the newest slot
+    M-1 (runs right before the window slides). Returns (vision, cov)."""
+    vision, jmat = _reparametrize_t(dims, vision, cov.dtype)
+    return vision, _sandwich(jmat, cov)
+
+
 # ---------------------------------------------------------------------------
 # window slide
 # ---------------------------------------------------------------------------
@@ -185,6 +206,13 @@ def _slide_t(dims: StateDims, vision: VisionState, dtype):
         vision, p_arr=p_arr, q_arr=q_arr, anchor_idx=anchor, n_valid_poses=n_valid
     )
     return vision, t
+
+
+def slide_window(dims: StateDims, vision: VisionState, cov):
+    """Shift the window one slot toward the front, zeroing the newest slot.
+    Returns (vision, cov)."""
+    vision, t = _slide_t(dims, vision, cov.dtype)
+    return vision, _sandwich(t, cov)
 
 
 # ---------------------------------------------------------------------------
@@ -222,6 +250,14 @@ def _augment_t(dims: StateDims, core: CoreState, vision: VisionState, q_ic, p_ic
     return vision, jmat
 
 
+def augment_pose(dims: StateDims, core: CoreState, vision: VisionState, cov, q_ic, p_ic):
+    """Clone the current camera pose into window slot M-1 (vacated and
+    zeroed by the slide); the sandwich fills its rows and columns from the
+    core covariance. Returns (vision, cov)."""
+    vision, jmat = _augment_t(dims, core, vision, q_ic, p_ic, cov.dtype)
+    return vision, _sandwich(jmat, cov)
+
+
 # ---------------------------------------------------------------------------
 # manage = remove + reparam + slide + augment
 # ---------------------------------------------------------------------------
@@ -237,7 +273,7 @@ def manage(dims: StateDims, core: CoreState, vision: VisionState, cov, lost, q_i
     vision, t_sl = _slide_t(dims, vision, dtype)
     vision, j_aug = _augment_t(dims, core, vision, q_ic, p_ic, dtype)
     t = j_aug @ (t_sl @ (j_rep @ t_rm))
-    return vision, t @ cov @ t.transpose(-1, -2), perm, n_keep
+    return vision, _sandwich(t, cov), perm, n_keep
 
 
 # ---------------------------------------------------------------------------

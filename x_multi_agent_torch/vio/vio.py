@@ -2,12 +2,12 @@
 ``x_multi_agent_tpu.vio.vio``): the parameter set, the initial covariance,
 ``init_at_time``, the match-driven ``process_matches`` (and its debug form),
 and the stateful :class:`VIO`, which holds one agent's state with an agent
-axis of 1, with its collaboration (keyframes, requests, the match store).
-The facade's photometric calibration and debug-image render are not
-ported.
+axis of 1, with its online photometric calibration, its collaboration
+(keyframes, requests, the match store) and its debug-image render.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -19,6 +19,9 @@ from ..ekf import ekf as ekf_mod
 from ..ekf.propagator import ImuNoise
 from ..ekf.state import CoreState, FilterState, VisionState
 from ..ops import lie, linalg
+from ..photometric import calib
+from ..utils.const import constant
+from ..vision.image import bilinear_sample
 from . import pipeline
 from . import track_manager as tm
 
@@ -129,6 +132,127 @@ def process_matches_debug(params: VioParams, fs, slots, meas_time, meas: pipelin
     return fs, slots, applied, dbg
 
 
+class PhotoConfig(NamedTuple):
+    """Static settings of the facade's photometric calibration."""
+
+    dims: calib.PhotoDims
+    epsilon_gap: float
+    epsilon_base: float
+    cell_px: int  # spatial cell size (pixels)
+    n_cells_x: int
+    n_cells_y: int
+    spatial_every: int  # frames between spatial solves
+
+
+@dataclass(frozen=True)
+class SpatialRing:
+    """Ring of spatial residual rows (ps[sid_cur] - ps[sid_hist] = rhs)."""
+
+    sid_hist: torch.Tensor  # (S,) int32 cell ids
+    sid_cur: torch.Tensor  # (S,) int32
+    rhs: torch.Tensor  # (S,)
+    valid: torch.Tensor  # (S,) bool
+    ptr: int  # next row to write
+
+
+@dataclass(frozen=True)
+class FacadePhoto:
+    """The facade's photometric calibration state: the gain chain, the ring
+    of the last ``n_history`` frames' SAMPLED intensities at their tracked
+    points (newest first; rows past ``n_hist`` are zeros with ids -1), the
+    frame counter that keys the RANSAC draws, and with spatial calibration
+    the residual ring and the (H, W) offset map (zeros until the first
+    solve)."""
+
+    state: calib.PhotoState
+    hist_int: torch.Tensor  # (Fh, n) intensities in [0, 1]
+    hist_pts: torch.Tensor  # (Fh, n, 2) tracked positions
+    hist_ids: torch.Tensor  # (Fh, n) int32 track ids
+    n_hist: int
+    frame: int
+    spatial: Optional[SpatialRing]
+    ps: Optional[torch.Tensor]
+
+    @staticmethod
+    def zero(cfg: PhotoConfig, hw, spatial_rows: int, dtype, device) -> "FacadePhoto":
+        fh, n = cfg.dims.n_history, cfg.dims.n_obs
+        ring = None
+        if spatial_rows:
+            ring = SpatialRing(
+                sid_hist=torch.zeros((spatial_rows,), dtype=torch.int32, device=device),
+                sid_cur=torch.zeros((spatial_rows,), dtype=torch.int32, device=device),
+                rhs=torch.zeros((spatial_rows,), dtype=dtype, device=device),
+                valid=torch.zeros((spatial_rows,), dtype=torch.bool, device=device), ptr=0,
+            )
+        return FacadePhoto(
+            state=calib.PhotoState.zero(cfg.dims, dtype, device),
+            hist_int=torch.zeros((fh, n), dtype=dtype, device=device),
+            hist_pts=torch.zeros((fh, n, 2), dtype=dtype, device=device),
+            hist_ids=torch.full((fh, n), -1, dtype=torch.int32, device=device),
+            n_hist=0, frame=0, spatial=ring,
+            ps=torch.zeros(hw, dtype=dtype, device=device) if spatial_rows else None,
+        )
+
+
+def _photo_sample(img: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Mean of the 5-point cross around each tracked position, in [0, 1]: a
+    point sample at a tracked peak is very sensitive to subpixel tracking
+    error, the cross mean much less (it matters for spatial residuals)."""
+    offs = constant(((0.0, 0.0), (1.0, 0.0), (-1.0, 0.0), (0.0, 1.0), (0.0, -1.0)),
+                    pts.dtype, pts.device)
+    return torch.mean(bilinear_sample(img, pts[None] + offs[:, None]), dim=0) / 255.0
+
+
+def _cell_id(pts: torch.Tensor, cfg: PhotoConfig) -> torch.Tensor:
+    div = cfg.cell_px
+    cx = torch.clamp(torch.div(pts[..., 0], div, rounding_mode="floor").to(torch.int32),
+                     0, cfg.n_cells_x - 1)
+    cy = torch.clamp(torch.div(pts[..., 1], div, rounding_mode="floor").to(torch.int32),
+                     0, cfg.n_cells_y - 1)
+    return cy * cfg.n_cells_x + cx
+
+
+def _accumulate_spatial(cfg: PhotoConfig, ph: FacadePhoto, state: calib.PhotoState, cur_pts,
+                        cur_int, pair_valid, a_cur, b_cur) -> SpatialRing:
+    """Append the spatial residual rows of every real history at once: after
+    the per-frame global correction, the matched-intensity difference left
+    is put on the per-cell offsets, ps[cell_cur] - ps[cell_prev] = corr_cur
+    - corr_prev. Per history pair, an affine term alpha I + beta (the
+    residual gain error between the two frames) is fitted on the same-cell
+    rows, whose spatial expectation is zero, and removed when there are at
+    least 5 of them. The rows go in history order, as the reference's
+    per-history appends."""
+    k = ph.n_hist
+    sp = ph.spatial
+    dev = cur_pts.device
+    back = constant(tuple(range(1, k + 1)), torch.int32, dev)
+    g_hist = state.params_pt[torch.remainder(state.frame_ptr - back, cfg.dims.window).long()]
+    a_prev, b_prev = g_hist[:, :1], g_hist[:, 1:]
+    rows = (cur_int * (a_cur - b_cur) + b_cur) - (ph.hist_int[:k] * (a_prev - b_prev) + b_prev)
+    sid_p = _cell_id(ph.hist_pts[:k], cfg)  # (K, n)
+    sid_c = _cell_id(cur_pts, cfg).expand_as(sid_p)
+    same = (sid_p == sid_c) & pair_valid[:k]
+    n_same = torch.sum(same, -1, keepdim=True)
+    w_s = same.to(rows.dtype)
+    sw = torch.clamp(torch.sum(w_s, -1, keepdim=True), min=1.0)
+    mi = torch.sum(w_s * cur_int, -1, keepdim=True) / sw
+    mr = torch.sum(w_s * rows, -1, keepdim=True) / sw
+    var_i = torch.sum(w_s * (cur_int - mi) ** 2, -1, keepdim=True) / sw
+    cov_ir = torch.sum(w_s * (cur_int - mi) * (rows - mr), -1, keepdim=True) / sw
+    alpha = torch.where(var_i > 1e-6, cov_ir / torch.clamp(var_i, min=1e-6), 0.0)
+    beta = mr - alpha * mi
+    rows = torch.where(n_same >= 5, rows - (alpha * cur_int + beta), rows)
+    s = sp.valid.shape[0]
+    idx = torch.remainder(sp.ptr + torch.arange(rows.numel(), device=dev), s)
+    return SpatialRing(
+        sid_hist=sp.sid_hist.index_copy(0, idx, sid_p.reshape(-1)),
+        sid_cur=sp.sid_cur.index_copy(0, idx, sid_c.reshape(-1)),
+        rhs=sp.rhs.index_copy(0, idx, rows.reshape(-1).to(sp.rhs.dtype)),
+        valid=sp.valid.index_copy(0, idx, pair_valid[:k].reshape(-1)),
+        ptr=(sp.ptr + rows.numel()) % s,
+    )
+
+
 class VIO:
     """Stateful single-agent facade (the reference's ``VIO``): the filter,
     track slots and tracker of one agent, held with an agent axis of 1, on
@@ -153,6 +277,7 @@ class VIO:
         self.n_reinits = 0
         self._reinit_streak = 0
         self._healthy_frames = 0
+        self.photo: Optional[FacadePhoto] = None
 
     def _batch(self, x, dtype=torch.float64) -> torch.Tensor:
         """Host value (or tensor) -> tensor with the agent axis of 1."""
@@ -291,20 +416,112 @@ class VIO:
         self._tracker_params = tracker_params
         self._camera = camera
         self._generator = generator
+        self._img_hw = (img_height, img_width)
         self._tracker_state = trk_mod.TrackerState.zero(
             tracker_params, 1, img_height, img_width, self.params.tdtype, self.device
         )
 
+    def enable_photometric(self, n_obs: int = 100, epsilon_gap: float = 0.02,
+                           epsilon_base: float = 0.005, n_history: int = 3,
+                           spatial: bool = False, cell_px: int = 40, spatial_every: int = 10,
+                           spatial_window: int = 64, generator=0):
+        """Online thermal gain calibration (the reference's
+        PHOTOMETRIC_CALI). Each image is corrected with the newest gains
+        before tracking (a one-frame lag); after tracking, the gains update
+        from the intensities of the first ``n_obs`` tracker slots in this
+        frame and in up to ``n_history`` earlier ones (same slot, same
+        track id).
+
+        ``spatial=True`` also collects per-cell residual rows and, every
+        ``spatial_every`` frames with at least 20 valid rows, solves the
+        GPR-smoothed per-cell offset map (``cell_px`` cells, a ring of
+        ``n_obs * spatial_window`` rows) that every later correction
+        subtracts; that gate reads one count back to the host. The
+        reference measured the spatial path harmful on static vignettes (a
+        static field cancels out of frame-to-frame LK) and keeps it off by
+        default, as here.
+
+        ``generator`` (a ``torch.Generator`` on the facade's device, or a
+        seed) draws the RANSAC hypotheses; ``self.photo_sampler`` may be
+        replaced by any ``calib.generator_sampler``-style callable. The
+        reference re-samples history frames stored as images by old
+        checkpoints; the port stores sampled intensities only and has no
+        such branch. Call after :meth:`setup_tracker`."""
+        if not hasattr(self, "_img_hw"):
+            raise RuntimeError("call setup_tracker first")
+        if spatial and spatial_window < n_history:
+            raise ValueError("spatial_window must hold one frame's rows of every history")
+        if not isinstance(generator, torch.Generator):
+            generator = torch.Generator(device=self.device).manual_seed(int(generator))
+        h, w = self._img_hw
+        self._photo_cfg = PhotoConfig(
+            dims=calib.PhotoDims(n_history=n_history, n_obs=n_obs), epsilon_gap=epsilon_gap,
+            epsilon_base=epsilon_base, cell_px=cell_px, n_cells_x=-(-w // cell_px),
+            n_cells_y=-(-h // cell_px), spatial_every=spatial_every,
+        )
+        self.photo_sampler = calib.generator_sampler(generator)
+        self.photo = FacadePhoto.zero(self._photo_cfg, (h, w), n_obs * spatial_window if spatial else 0,
+                                      self.params.tdtype, self.device)
+
+    def _photometric_update(self, raw_img: torch.Tensor):
+        """Update the gain chain from the tracked features' intensities in
+        the raw frame against the history ring (the reference's
+        ``ProcessCurrentFrame`` over several histories), append the spatial
+        rows, push this frame into the ring and, when due, solve the spatial
+        map."""
+        cfg, ph = self._photo_cfg, self.photo
+        n, fh = cfg.dims.n_obs, cfg.dims.n_history
+        cur_pts = self._tracker_state.pts[0, :n]
+        cur_ids = self._tracker_state.ids[0, :n]
+        cur_int = _photo_sample(raw_img, cur_pts)
+        state, spatial = ph.state, ph.spatial
+        if ph.n_hist:
+            pair_valid = (ph.hist_ids == cur_ids) & (cur_ids >= 0)  # (Fh, n)
+            offsets = constant(tuple(min(k + 1, ph.n_hist) for k in range(fh)), torch.int32,
+                               self.device)
+            state, a_cur, b_cur = calib.process_frame(
+                cfg.dims, state, ph.hist_int, cur_int.expand(fh, n), pair_valid, offsets,
+                self.photo_sampler(pair_valid, ph.frame), cfg.epsilon_gap, cfg.epsilon_base,
+            )
+            if spatial is not None:
+                spatial = _accumulate_spatial(cfg, ph, state, cur_pts, cur_int, pair_valid,
+                                              a_cur, b_cur)
+        ps = ph.ps
+        frame = ph.frame + 1
+        if (spatial is not None and frame % cfg.spatial_every == 0
+                and int(spatial.valid.sum()) >= 20):
+            cells = calib.estimate_spatial_parameters(
+                cfg.n_cells_x, cfg.n_cells_y, spatial.sid_hist, spatial.sid_cur, spatial.rhs,
+                spatial.valid,
+            )
+            ps = calib.expand_spatial(cells, *self._img_hw, cfg.cell_px)
+        self.photo = FacadePhoto(
+            state=state,
+            hist_int=torch.cat([cur_int[None], ph.hist_int[:-1]]),
+            hist_pts=torch.cat([cur_pts[None], ph.hist_pts[:-1]]),
+            hist_ids=torch.cat([cur_ids[None], ph.hist_ids[:-1]]),
+            n_hist=min(ph.n_hist + 1, fh), frame=frame, spatial=spatial, ps=ps,
+        )
+
     def process_image_measurement(self, t: float, seq: int, img, ransac_idx=None):
         """Track features in the (H, W) image, then run the visual update.
-        ``ransac_idx`` (1, S, 8) replaces the generator's RANSAC draws."""
+        ``ransac_idx`` (1, S, 8) replaces the generator's RANSAC draws. With
+        photometric calibration on, the tracker sees the corrected image and
+        the gains update from the raw one."""
         from ..vision import tracker as trk_mod
 
-        img = torch.as_tensor(img, dtype=self.params.tdtype, device=self.device)
+        raw = torch.as_tensor(img, dtype=self.params.tdtype, device=self.device)
+        img = raw
+        if self.photo is not None:
+            linalg.require_fp32_matmul(self.device, "VIO.process_image_measurement")
+            a, b = self.photo.state.current().unbind(-1)
+            img = calib.correct_image(raw, a, b, params_ps=self.photo.ps).to(self.params.tdtype)
         self._tracker_state, matches = trk_mod.track_frame(
             self._tracker_params, self._camera, self._tracker_state, img,
             generator=self._generator, ransac_idx=ransac_idx,
         )
+        if self.photo is not None:
+            self._photometric_update(raw)
         # pad/crop the tracker's match budget to the pipeline's budget
         jm = self.params.cfg.tracks.n_matches
         jt = matches.valid.shape[1]
@@ -493,6 +710,16 @@ class VIO:
         if d is None:
             return np.zeros((0, 3))
         return d.slam_cartesian[0].cpu().numpy()[d.slam_cart_valid[0].cpu().numpy()]
+
+    def render_debug_image(self, img, camera=None) -> np.ndarray:
+        """RGB uint8 feature-class plot of the last update's debug payload
+        over ``img`` (the reference's track-manager plot); the plain image
+        without ``debug=True`` or before the first applied update."""
+        from ..utils import render
+
+        if self.last_debug is None:
+            return render.to_rgb(img)
+        return render.draw_track_classes(img, self.last_debug, camera)
 
 
 def _quat_from_two_vectors(a: np.ndarray, b: np.ndarray) -> np.ndarray:
