@@ -79,11 +79,25 @@ Phases (any failure raises, so the exit code is non-zero):
      last spatial solve through the port on the CPU in float64: |da|, |db|
      <= 1e-4, the maps within 1e-3 once each connected component of the
      seen cells takes its own fitted offset (the centred difference and the
-     mean offset printed).
+     mean offset printed);
+ 10. the multi-rank exchange (``parallel/mesh.py``): (a) 2 gloo ranks, both
+     on the one card (``mesh.spawn_agents``), each run phase 7's fleet on
+     its block of 8 agents (rendered in the rank, ``frame_step`` with
+     descriptors and the keyframe step for 20 frames, phase 7's words), then
+     ``sharded_collab_round_desc`` and ``sharded_collab_round``, timed with
+     CUDA events, with the bytes each collective shipped; the
+     single-process rounds on the gathered pre-round states (the same keyed
+     RANSAC draws) give the same integers and floats within 1e-4 of each
+     leaf's max; asserts >= 90 % applied, finite covariances, K1 and K2
+     (>= 3 per frame) launched in each rank, a hit and a fused match; (b)
+     the same two sharded rounds in this process at NCCL world size 1 on
+     all 16 agents: bit for bit the single-process rounds; (c)
+     ``dryrun.dryrun_multichip`` on 2 gloo ranks of 2 agents on the card,
+     with its checks. The phase's wall time is printed.
 
 The last three lines of standard output are the kernels' JSON record (the
-launch counts summed over the paths of phases 3 and 5-9, each read from 0
-around its path; phase 4's times per launch), the card's ``nvidia-smi``
+launch counts summed over the paths of phases 3, 5-9 and 10's ranks, each
+read from 0 around its path; phase 4's times per launch), the card's ``nvidia-smi``
 name and power limit, and the result JSON.
 """
 import json
@@ -98,6 +112,7 @@ ROUND_EVERY = 5  # collaborative rounds after every 5th frame
 N_FACADE = N_WARM + N_TIMED
 N_RC, RC_ROUNDS = 20, (15, 20)  # request-response fleet: frames, rounds after these
 N_WORDS, EXCHANGE_EVERY = 64, 3
+N_RANKS = 2  # phase 10: gloo ranks of the multi-rank exchange, all on the one card
 # phase 9: the reference's thermal e2e drift, the accuracy report's vignette
 # and noise, its calibration budget; spatial cells and cadence
 THERMAL_GAINS = [(1.0 + 0.01 * k, 0.002 * k) for k in range(N_FACADE)]
@@ -341,13 +356,12 @@ def run_collab(torch, params, tparams, cam, ccfg, start, frames, imu, n_frames, 
     a, h, w = frames.shape[1:]
     fs, slots = vio.init_at_time(params, 0.0, a, device, p=start[0], v=start[1], q=start[2])
     tstate = tracker.TrackerState.zero(tparams, a, h, w, device=device)
-    gen = torch.Generator(device=device).manual_seed(1)
     times, seqs, w_ms, a_ms = imu
     rounds = []
     for k in range(n_frames):
         tstate, fs, slots, _, _ = frame_step(
             params, tparams, cam, tstate, fs, slots, frames[k], times[k], seqs[k],
-            w_ms[k], a_ms[k], times[k][:, -1], generator=gen,
+            w_ms[k], a_ms[k], times[k][:, -1], seed=1,
         )
         if (k + 1) % every:
             continue
@@ -367,7 +381,7 @@ def run_facade(torch, params, tparams, cam, frames, imu, start, device):
     times, seqs, w_ms, a_ms = imu
     v = VIO(params, device=device)
     v.init_at_time(0.0, p=start[0], v=start[1], q=start[2])
-    v.setup_tracker(tparams, cam, frames.shape[-2], frames.shape[-1], generator=0)
+    v.setup_tracker(tparams, cam, frames.shape[-2], frames.shape[-1], seed=0)
     v.enable_health_monitor()
 
     def run():
@@ -409,7 +423,6 @@ def run_request_comm(torch, params, tparams, cam, start, frames, imu, device):
     descriptors on) for ``N_RC`` frames, each followed by the keyframe step,
     with a request-response round after each frame in ``RC_ROUNDS`` and a
     joint-MSCKF round at the end. Returns (fs, words, record)."""
-    from x_multi_agent_torch.ops.ransac import generator_sampler
     from x_multi_agent_torch.parallel import collab
     from x_multi_agent_torch.place_recognition import database as db_mod, descriptors
     from x_multi_agent_torch.place_recognition.vocabulary import train_kmajority
@@ -421,8 +434,6 @@ def run_request_comm(torch, params, tparams, cam, start, frames, imu, device):
     ccfg = collab.CollabConfig()
     fs, slots = vio.init_at_time(params, 0.0, a, device, p=start[0], v=start[1], q=start[2])
     tstate = tracker.TrackerState.zero(tparams, a, h, w, device=device)
-    gen = torch.Generator(device=device).manual_seed(2)
-    sampler = generator_sampler(torch.Generator(device=device).manual_seed(7))
     db_dims = db_mod.DbDims(n_keyframes=15, n_words=N_WORDS, max_agents=a)
     times, seqs, w_ms, a_ms = imu
     n_sel = torch.zeros((a,), dtype=torch.int64, device=device)
@@ -430,7 +441,7 @@ def run_request_comm(torch, params, tparams, cam, start, frames, imu, device):
     for k in range(N_RC):
         tstate, fs, slots, _, applied = frame_step(
             params, tparams, cam, tstate, fs, slots, frames[k], times[k], seqs[k],
-            w_ms[k], a_ms[k], times[k][:, -1], generator=gen,
+            w_ms[k], a_ms[k], times[k][:, -1], seed=2,
         )
         if k == 0:  # the vocabulary, from the fleet's frame-0 descriptors
             d0, ok0 = descriptors.compute(frames[0], tstate.pts, tstate.ids >= 0)
@@ -444,7 +455,7 @@ def run_request_comm(torch, params, tparams, cam, start, frames, imu, device):
         n_sel = n_sel + sel.to(torch.int64)
         if k + 1 in RC_ROUNDS:
             (fs, db, hits, n_matches), ms = _timed(torch, lambda: collab.request_response_round(
-                params, ccfg, words, fs, slots, db, sampler=sampler))
+                params, ccfg, words, fs, slots, db))
             rec["rounds"].append({
                 "after_frame": k + 1, "ms": ms, "hits": int(hits.sum()),
                 "hits_per_requester": hits.sum(1).tolist(), "fused": int(n_matches.sum()),
@@ -475,9 +486,9 @@ def run_facade_pair(torch, params, tparams, cam, frames, imu, start, words, devi
     for uav in range(2):
         v = VIO(params, device=device)
         v.init_at_time(0.0, p=start[0][uav], v=start[1][uav], q=start[2][uav])
-        v.setup_tracker(tparams, cam, frames.shape[-2], frames.shape[-1], generator=uav)
+        v.setup_tracker(tparams, cam, frames.shape[-2], frames.shape[-1], seed=uav)
         v.enable_health_monitor()
-        v.enable_collab(words, uav_id=uav, generator=10 + uav)
+        v.enable_collab(words, uav_id=uav, seed=10 + uav)
         vs.append(v)
     payload_b = collab.payload_nbytes(vs[0].get_data_to_send())
     vlad_b = collab.vlad_nbytes(words)
@@ -532,10 +543,10 @@ def run_thermal(torch, params, tparams, cam, raw, clean, imu, start, spatial, de
     times, seqs, w_ms, a_ms = imu
     v = VIO(params, device=device)
     v.init_at_time(0.0, p=start[0], v=start[1], q=start[2])
-    v.setup_tracker(tparams, cam, raw.shape[-2], raw.shape[-1], generator=0)
+    v.setup_tracker(tparams, cam, raw.shape[-2], raw.shape[-1], seed=0)
     v.enable_health_monitor()
     v.enable_photometric(n_obs=PHOTO_OBS, spatial=spatial, cell_px=CELL_PX,
-                         spatial_every=SPATIAL_EVERY, generator=5)
+                         spatial_every=SPATIAL_EVERY, seed=5)
     update, solve_fn, frame_fn = v._photometric_update, calib.estimate_spatial_parameters, calib.process_frame
     last = {}
     upd_events, gains_before, gains_after = [], [], []
@@ -673,6 +684,148 @@ def photo_card_vs_cpu(torch, last) -> dict:
     return out
 
 
+def exchange_rank(mesh, n_agents, words):
+    """Phase 10a's rank, in a process of its own (``mesh.spawn_agents``):
+    this rank's block of phase 7's fleet (a fresh fleet from
+    ``orbit_start``, ``frame_step`` with descriptors and the keyframe step
+    for ``N_RC`` frames, rendered here), then ``sharded_collab_round_desc``
+    and ``sharded_collab_round``, each timed with CUDA events. Returns the
+    block's pre-round states, round outputs, K1/K2 launches, updates
+    applied, bytes shipped per collective and ms per round."""
+    import torch
+
+    _no_jax()
+    from x_multi_agent_torch import configs
+    from x_multi_agent_torch.parallel import collab, mesh as pmesh
+    from x_multi_agent_torch.place_recognition import database as db_mod
+    from x_multi_agent_torch.utils.scene import orbit_dataset, orbit_start
+    from x_multi_agent_torch.vio import vio
+    from x_multi_agent_torch.vio.frame_step import frame_step
+    from x_multi_agent_torch.vision import fast, lk, tracker
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, sl = mesh.device, mesh.block(n_agents)
+    blk = sl.stop - sl.start
+    frames, (times, seqs, w_ms, a_ms) = orbit_dataset(n_agents, N_RC, H, W, dev, agents=sl)
+    p0, v0, q0 = (x[sl] for x in orbit_start(n_agents))
+    params = configs.flagship_params()
+    tparams = configs.flagship_tracker(params.cfg.tracks.n_matches)._replace(
+        compute_descriptors=True)
+    cam = configs.flagship_camera(H, W)
+    ccfg = collab.CollabConfig()
+    words = words.to(dev)
+    db_dims = db_mod.DbDims(n_keyframes=15, n_words=N_WORDS, max_agents=n_agents)
+    fast.K1.launches = lk.K2.launches = 0
+    fs, slots = vio.init_at_time(params, 0.0, blk, dev, p=p0, v=v0, q=q0)
+    tstate = tracker.TrackerState.zero(tparams, blk, H, W, device=dev)
+    db = db_mod.KeyframeDB.zero(db_dims, collab.extract_payload_desc(params, fs, slots))
+    kf_meta = collab.KfMeta.zero(blk, fs.cov.dtype, dev)
+    n_applied = torch.zeros((), dtype=torch.int64, device=dev)
+    for k in range(N_RC):
+        tstate, fs, slots, _, applied = frame_step(
+            params, tparams, cam, tstate, fs, slots, frames[k], times[k], seqs[k], w_ms[k],
+            a_ms[k], times[k][:, -1], seed=2,
+        )
+        db, kf_meta, _ = collab.maybe_add_keyframe(params, db_dims, words, fs, slots, db,
+                                                   kf_meta, enabled=applied)
+        n_applied = n_applied + applied.sum()
+    launches = {"fast": fast.K1.launches, "lk": lk.K2.launches}
+    desc, ms_desc = _timed(torch, lambda: pmesh.sharded_collab_round_desc(
+        params, ccfg, words, mesh)(fs, slots, db))
+    full, ms_full = _timed(torch, lambda: pmesh.sharded_collab_round(params, ccfg, mesh)(desc[0]))
+    _no_jax()
+    return {"pre": (fs, slots, db), "desc": desc, "full": full, "launches": launches,
+            "applied": int(n_applied), "shipped": dict(mesh.shipped),
+            "ms": {"desc": ms_desc, "full": ms_full}}
+
+
+def tree_diff(torch, got, ref, path="out") -> dict:
+    """Leaf by leaf (``utils.tree.leaves`` order): the integer and boolean
+    leaves that differ, the worst float difference as a share of its leaf's
+    max |ref| (and where), and whether every leaf is bit-identical. A leaf
+    is named ``path[i]`` by its index."""
+    from x_multi_agent_torch.utils import tree
+
+    got, ref = tree.leaves(got), tree.leaves(ref)
+    if len(got) != len(ref):
+        raise AssertionError(f"{path}: {len(got)} leaves != {len(ref)}")
+    out = {"int_differ": [], "worst_rel": 0.0, "worst_at": None, "bitwise": True}
+    for i, (g, r) in enumerate(zip(got, ref)):
+        p = f"{path}[{i}]"
+        if not isinstance(g, torch.Tensor):
+            if g != r:
+                out["bitwise"] = False
+                out["int_differ"].append(p)
+            continue
+        if g.shape != r.shape or g.dtype != r.dtype:
+            raise AssertionError(f"{p}: {g.dtype}{tuple(g.shape)} != {r.dtype}{tuple(r.shape)}")
+        same = torch.equal(g.reshape(-1).contiguous().view(torch.uint8),
+                           r.reshape(-1).contiguous().view(torch.uint8))
+        out["bitwise"] = out["bitwise"] and same
+        if same:
+            continue
+        if not g.is_floating_point():
+            out["int_differ"].append(p)
+            continue
+        err = float((g.double() - r.double()).abs().max())
+        scale = float(r.abs().max())
+        rel = err / scale if scale > 0 else float("inf")
+        if not rel <= out["worst_rel"]:  # NaN counts as the worst
+            out["worst_rel"], out["worst_at"] = rel, p
+    return out
+
+
+def run_exchange(torch, params, words, device) -> dict:
+    """Phase 10: the multi-rank exchange on the card. 10a: ``N_RANKS``
+    gloo ranks on the one card run phase 7's fleet in blocks
+    (:func:`exchange_rank`), and the single-process rounds on their
+    gathered pre-round states, with the same keyed draws, are held against
+    theirs; 10b: the sharded rounds in this process at NCCL world size 1
+    against the single-process rounds, bit for bit; 10c: the dry run on
+    ``N_RANKS`` gloo ranks of 2 agents. Returns the record."""
+    import shutil
+    import tempfile
+
+    from x_multi_agent_torch.parallel import collab, dryrun, mesh as pmesh
+    from x_multi_agent_torch.utils import tree
+
+    t0 = time.perf_counter()
+    ccfg = collab.CollabConfig()
+    tmp = tempfile.mkdtemp(prefix="smoke_exchange_")
+    try:
+        ranks = pmesh.spawn_agents(exchange_rank, N_RANKS, "gloo", f"file://{tmp}/gloo",
+                                   (N_AGENTS, words.cpu()), timeout_s=300.0)
+        rec = {"ranks_s": time.perf_counter() - t0, "ranks": [
+            {k: r[k] for k in ("launches", "applied", "shipped", "ms")} for r in ranks]}
+
+        def gathered(key):
+            return tree.map_leaves(lambda x: x.to(device), tree.cat([r[key] for r in ranks]))
+
+        fs, slots, db = gathered("pre")
+        ref, rec["single_ms"] = _timed(torch, lambda: dryrun.single_rounds(
+            params, fs, ccfg, ccfg, words, slots, db))
+        got = {key: gathered(key) for key in ("desc", "full")}
+        rec["gloo"] = {key: tree_diff(torch, got[key], ref[key], key) for key in got}
+        rec["hits"] = int(got["desc"][2].sum())
+        rec["desc_fused"] = int(got["desc"][3].sum())
+        rec["full_fused"] = int(got["full"][1].sum())
+        rec["finite"] = all(bool(torch.isfinite(x.cov).all())
+                            for x in (fs, got["desc"][0], got["full"][0]))
+
+        mesh = pmesh.make_agent_mesh("nccl", f"file://{tmp}/nccl", 0, 1, device)
+        try:
+            nccl = dryrun.sharded_rounds(mesh, params, fs, ccfg, ccfg, words, slots, db)
+            torch.cuda.synchronize()
+        finally:
+            torch.distributed.destroy_process_group()
+        rec["nccl"] = {key: tree_diff(torch, nccl[key], ref[key], key) for key in nccl}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["dryrun"] = dryrun.dryrun_multichip(N_RANKS, "gloo", 2, device="cuda")
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -761,7 +914,6 @@ def main() -> int:
     p0, v0, q0 = orbit_start(N_AGENTS)
     fs, slots = vio.init_at_time(params, 0.0, N_AGENTS, dev, p=p0, v=v0, q=q0)
     tstate = tracker.TrackerState.zero(tparams, N_AGENTS, H, W, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(0)
     times, seqs, w_ms, a_ms = imu
     n_applied = torch.zeros((), dtype=torch.int64, device=dev)
     counts.start()
@@ -772,7 +924,7 @@ def main() -> int:
             start.record()
         tstate, fs, slots, matches, applied = frame_step(
             params, tparams, cam, tstate, fs, slots, frames[k], times[k], seqs[k],
-            w_ms[k], a_ms[k], times[k][:, -1], generator=gen,
+            w_ms[k], a_ms[k], times[k][:, -1],
         )
         n_applied = n_applied + applied.sum()
     end.record()
@@ -981,6 +1133,41 @@ def main() -> int:
           f"with those offsets removed {cmp['map_err_per_component']:.3g} ({card})")
     if cmp["da"] > 1e-4 or cmp["db"] > 1e-4 or cmp["map_err_per_component"] > 1e-3:
         raise AssertionError(f"thermal facade: the card's calibration disagrees with the CPU's: {cmp}")
+    _no_jax()
+
+    # ---- 10. the multi-rank exchange -------------------------------------------
+    ex = run_exchange(torch, params, words, dev)
+    for i, r in enumerate(ex["ranks"]):
+        for name in counts.total:
+            counts.total[name] += r["launches"][name]
+        print(f"exchange rank {i}: {N_AGENTS // N_RANKS} agents x {N_RC} frames, updates applied "
+              f"{r['applied']}/{N_AGENTS // N_RANKS * N_RC}; descriptor round "
+              f"{r['ms']['desc']:.3f} ms, full-map round {r['ms']['full']:.3f} ms; bytes shipped "
+              f"{r['shipped']}; launches K1 {r['launches']['fast']} K2 {r['launches']['lk']} ({card})")
+    print(f"exchange: {N_RANKS} gloo ranks on one card, {ex['ranks_s']:.2f} s for the ranks; "
+          f"hits {ex['hits']}, matches fused {ex['desc_fused']} (descriptor round) and "
+          f"{ex['full_fused']} (full-map round); single-process rounds {ex['single_ms']:.3f} ms; "
+          f"against them: gloo {json.dumps(ex['gloo'])}; NCCL world size 1 "
+          f"{json.dumps(ex['nccl'])} ({card})")
+    dry = ex["dryrun"]
+    print(f"exchange dry run: {dry['agents']} agents on {dry['ranks']} gloo ranks: fused "
+          f"{dry['matches_fused']} + {dry['desc_fused']}, hits {dry['hits']}, bytes gated "
+          f"{dry['bytes_gated']} vs full {dry['bytes_full']}, shipped {dry['shipped']}, checks "
+          f"{dry['checks']} ({card})")
+    print(f"phase 10: {ex['seconds']:.2f} s wall ({card})")
+    applied = sum(r["applied"] for r in ex["ranks"])
+    if applied < 0.9 * N_AGENTS * N_RC or not ex["finite"]:
+        raise AssertionError(f"exchange: {applied} updates applied, covariance finite {ex['finite']}")
+    if any(r["launches"]["fast"] < 1 or r["launches"]["lk"] < 3 * N_RC for r in ex["ranks"]):
+        raise AssertionError(f"exchange: a rank missed a kernel: {ex['ranks']}")
+    if ex["hits"] < 1 or ex["desc_fused"] < 1 or ex["full_fused"] < 1:
+        raise AssertionError("exchange: no hit or no fused match")
+    for key, d in ex["gloo"].items():
+        if d["int_differ"] or not d["worst_rel"] <= 1e-4:
+            raise AssertionError(f"exchange: the {key} round on the ranks differs: {d}")
+    for key, d in ex["nccl"].items():
+        if not d["bitwise"]:
+            raise AssertionError(f"exchange: the {key} round at NCCL world size 1 differs: {d}")
     _no_jax()
 
     kernels = []

@@ -32,7 +32,6 @@ sys.path.insert(0, ROOT)
 
 from x_multi_agent_torch import configs  # noqa: E402
 from x_multi_agent_torch.ekf import ekf as ekf_mod  # noqa: E402
-from x_multi_agent_torch.ops.ransac import generator_sampler  # noqa: E402
 from x_multi_agent_torch.parallel import collab, match_store  # noqa: E402
 from x_multi_agent_torch.place_recognition import database as db_mod  # noqa: E402
 from x_multi_agent_torch.utils.scene import orbit_dataset, orbit_start  # noqa: E402
@@ -85,7 +84,7 @@ def main() -> int:
         nonlocal tstate, fs, slots, meas
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         ev[0].record()
-        tstate, matches = tracker.track_frame_batch(tparams, cam, tstate, frames[k], generator=gen)
+        tstate, matches = tracker.track_frame_batch(tparams, cam, tstate, frames[k])
         ev[1].record()
         fs = ekf_mod.process_imu_batch_impl(ekf_p, fs, times[k], seqs[k], w_ms[k], a_ms[k])
         ev[2].record()
@@ -142,7 +141,6 @@ def main() -> int:
     words = torch.randint(0, 256, (64, 32), generator=gen, device=dev).to(torch.uint8)
     db = db_mod.KeyframeDB.zero(db_dims, collab.extract_payload_desc(params, fs, slots))
     kf_meta = collab.KfMeta.zero(a, fs.cov.dtype, dev)
-    sampler = generator_sampler(gen)
     calls = {
         "visual_update": lambda i: ekf_mod.process_update_aux_impl(
             ekf_p, fs, t_meas,
@@ -152,7 +150,7 @@ def main() -> int:
         "keyframe_step": lambda i: collab.maybe_add_keyframe(
             params, db_dims, words, fs, slots, db, kf_meta),
         "request_response_round": lambda i: collab.request_response_round(
-            params, ccfg, words, fs, slots, db, sampler=sampler),
+            params, ccfg, words, fs, slots, db),
         "msckf_round": lambda i: collab.collaborative_msckf_round(params, ccfg, fs, slots),
     }
     request_comm = {}

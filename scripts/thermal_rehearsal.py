@@ -117,7 +117,7 @@ def main() -> int:
                           np.float64)
 
     tv = tvio.VIO(configs.flagship_params(), device="cpu")
-    tv.setup_tracker(tparams, cam, h, w, generator=0)
+    tv.setup_tracker(tparams, cam, h, w, seed=0)
 
     def port_gains(v):
         if v.photo is None:

@@ -20,7 +20,7 @@ from hypothesis import given, settings
 
 from x_multi_agent_torch import configs
 from x_multi_agent_torch.ekf.state import StateDims
-from x_multi_agent_torch.ops.ransac import draw_sample_indices, generator_sampler
+from x_multi_agent_torch.ops.ransac import KeyedSampler
 from x_multi_agent_torch.parallel import collab
 from x_multi_agent_torch.place_recognition import database as db_mod
 from x_multi_agent_torch.place_recognition.vocabulary import train_kmajority
@@ -427,11 +427,9 @@ DESC_CCFG = collab.CollabConfig(sigma_landmark=0.1, ci_slam_w=0.05, gt_match_dis
                                 pr_score_thr=0.2)
 
 
-def _cpu_sampler(mask, seed, t, k):
-    """RANSAC sample indices drawn on the CPU from ``seed`` alone: the same
-    draws on either device for the same mask."""
-    g = torch.Generator().manual_seed(seed)
-    return draw_sample_indices(mask.cpu(), 200, g).to(mask.device)
+# the keyed draws are integer hashes: the same bits on either device for the
+# same mask and keys
+_KEYED = KeyedSampler()
 
 
 @pytest.fixture(scope="module")
@@ -493,10 +491,10 @@ def test_request_response_round_cuda_matches_cpu(cuda, desc_fleet):
     window states within 1e-4."""
     fs, slots, words, _, db = desc_fleet
     ref = collab.request_response_round(_collab_params("float64"), DESC_CCFG, words, fs, slots,
-                                        db, sampler=_cpu_sampler)
+                                        db, sampler=_KEYED)
     got = collab.request_response_round(
         _collab_params("float32"), DESC_CCFG, words.to(cuda), _to_card(fs, cuda),
-        _to_card(slots, cuda), _to_card(db, cuda), sampler=_cpu_sampler)
+        _to_card(slots, cuda), _to_card(db, cuda), sampler=_KEYED)
     torch.cuda.synchronize()
     ref_fs, ref_db, ref_hits, ref_n = ref
     got_fs, got_db, got_hits, got_n = got
@@ -515,17 +513,15 @@ def test_request_response_round_cuda_matches_cpu(cuda, desc_fleet):
 @pytest.mark.gpu
 def test_request_comm_rounds_never_wait_for_the_card(cuda, desc_fleet):
     """After a first pass has built the per-device constants, the fleet's
-    collaboration step (a request-response round with the card's own RANSAC
+    collaboration step (a request-response round with the keyed RANSAC
     draws, a joint-MSCKF round, the keyframe step) runs no synchronizing
     CUDA operation (sync debug mode "error" raises on one)."""
     fs, slots, words, dd, db = desc_fleet
     fs, slots, db, words = (_to_card(x, cuda) for x in (fs, slots, db, words))
     params = _collab_params("float32")
-    sampler = generator_sampler(torch.Generator(device=cuda).manual_seed(0))
 
     def step():
-        f, d, _, _ = collab.request_response_round(params, DESC_CCFG, words, fs, slots, db,
-                                                   sampler=sampler)
+        f, d, _, _ = collab.request_response_round(params, DESC_CCFG, words, fs, slots, db)
         f, _ = collab.collaborative_msckf_round(params, DESC_CCFG, f, slots)
         kf = collab.KfMeta.zero(3, torch.float32, cuda)
         collab.maybe_add_keyframe(params, dd, words, f, slots, d, kf,

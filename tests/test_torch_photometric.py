@@ -20,6 +20,7 @@ import torch
 from torch_helpers import (CPU, F64, assert_tree_close, jax_gain_indices, jax_photo_indices,
                            jax_photo_sampler, np_tree, orbit_frames, port_params, stack, t)
 from x_multi_agent_tpu.photometric import calib as jcal
+from x_multi_agent_torch.ops.ransac import KeyedSampler
 from x_multi_agent_torch.photometric import calib as tcal
 
 REL = 1e-9
@@ -216,8 +217,7 @@ def test_process_frame_tracks_gain_drift():
     st = tcal.PhotoState.zero(dims, F64, CPU)
     j = 80
     base = rng.uniform(0.2, 0.8, j)
-    gen = torch.Generator().manual_seed(0)
-    sampler = tcal.generator_sampler(gen)
+    sampler = KeyedSampler(0, tcal.N_HYPOTHESES, tcal.SAMPLE_SIZE)
     a_truth, b_truth = 1.0, 0.0
     for _ in range(5):
         a_rel, b_rel = 1.05, 0.01
@@ -227,7 +227,7 @@ def test_process_frame_tracks_gain_drift():
         valid = torch.ones((1, j), dtype=torch.bool)
         st, a_est, b_est = tcal.process_frame(
             dims, st, t(o_hist)[None], t(o_cur)[None], valid, t(np.array([1], np.int32)),
-            sampler(valid, 0), epsilon_gap=0.0, epsilon_base=0.0,
+            sampler(valid, 0, torch.arange(1)), epsilon_gap=0.0, epsilon_base=0.0,
         )
     assert abs(float(a_est) - a_truth) < 2e-2 and abs(float(b_est) - b_truth) < 2e-2
 

@@ -79,8 +79,9 @@ def test_frame_step_matches_reference_composition():
 
 
 def test_frame_step_generator_path_runs_in_float32():
-    """The card's configuration on the CPU: float32, RANSAC hypotheses drawn
-    from a torch.Generator; deterministic for a seed, finite covariance."""
+    """The card's configuration on the CPU: float32, RANSAC hypotheses keyed
+    on a seed and the tracker state; deterministic for a seed, finite
+    covariance."""
     tp = configs.flagship_params(small=True)
     trk_p = configs.flagship_tracker(tp.cfg.tracks.n_matches)
     cam = configs.flagship_camera(H, W)
@@ -89,12 +90,11 @@ def test_frame_step_generator_path_runs_in_float32():
     for _ in range(2):
         fs, slots = tvio.init_at_time(tp, 0.0, A, CPU)
         tstate = ttrk.TrackerState.zero(trk_p, A, H, W, device=CPU)
-        g = torch.Generator().manual_seed(0)
         for k in range(3):
             x = [t(v[k], torch.float32) for v in imu]
             tstate, fs, slots, m, app = frame_step(
                 tp, trk_p, cam, tstate, fs, slots, t(frames[k], torch.float32), *x,
-                x[0][:, -1], generator=g,
+                x[0][:, -1], seed=0,
             )
         outs.append((fs.cov, tstate.ids, m.valid))
     assert bool(app.all()) and bool(torch.isfinite(outs[0][0]).all())

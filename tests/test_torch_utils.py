@@ -26,7 +26,6 @@ from x_multi_agent_tpu.utils.sim import make_circle_sim
 from x_multi_agent_tpu.vio import pipeline as jpipe
 from x_multi_agent_tpu.vision import camera as jcam
 from x_multi_agent_torch import configs
-from x_multi_agent_torch.photometric import calib as tcal
 from x_multi_agent_torch.utils import checkpoint, config, dataio, ref_ingest, render, scene
 from x_multi_agent_torch.utils.timing import Timing
 from x_multi_agent_torch.vio import pipeline as tpipe
@@ -82,18 +81,12 @@ def test_checkpoint_resume_bit_identical(tmp_path):
         checkpoint.load(ckpt, (small.fs, small.slots))
 
 
-def _keyed_photo_sampler(valid, frame):
-    from x_multi_agent_torch.ops.ransac import draw_sample_indices
-
-    return draw_sample_indices(valid, tcal.N_HYPOTHESES, torch.Generator().manual_seed(frame),
-                               tcal.SAMPLE_SIZE)
-
-
 def test_checkpoint_photometric_facade(tmp_path):
     """A facade with spatial photometric calibration: the filter, the
     tracker and the photometric state (gain chain, history ring, frame
     counter, spatial ring and map, Python counters included) round-trip,
-    and the restored facade continues bit-identically."""
+    and the restored facade continues bit-identically: every RANSAC draw
+    is keyed on that state, so no generator state is restored."""
     h, w, n, k0 = 120, 160, 7, 4
     tp = port_params(ge._params(small=True)._replace(dtype="float64"))
     trk = configs.flagship_tracker(tp.cfg.tracks.n_matches - 4)
@@ -104,9 +97,8 @@ def test_checkpoint_photometric_facade(tmp_path):
     def facade():
         v = tvio.VIO(tp, device=CPU)
         v.init_at_time(0.0)
-        v.setup_tracker(trk, cam, h, w, generator=3)
-        v.enable_photometric(n_obs=16, spatial=True, cell_px=20, spatial_every=3)
-        v.photo_sampler = _keyed_photo_sampler
+        v.setup_tracker(trk, cam, h, w, seed=3)
+        v.enable_photometric(n_obs=16, spatial=True, cell_px=20, spatial_every=3, seed=4)
         return v
 
     def feed(v, ks):
@@ -122,19 +114,117 @@ def test_checkpoint_photometric_facade(tmp_path):
     feed(v, range(k0))
     ckpt = str(tmp_path / "facade.npz")
     checkpoint.save(ckpt, state(v))
-    gen_state = v._generator.get_state()
     feed(v, range(k0, n))
 
     v2 = facade()
     v2.fs, v2.slots, v2._tracker_state, v2.photo = checkpoint.load(ckpt, state(v2))
     assert (v2.photo.frame, v2.photo.n_hist, v2.photo.spatial.ptr) == (k0, 3, (1 + 2 + 3) * 16)
-    v2._generator.set_state(gen_state)
     feed(v2, range(k0, n))
     from x_multi_agent_torch.utils.tree import leaves
 
     for a, b in zip(leaves(state(v)), leaves(state(v2))):
         assert (torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b)
     assert float(v.photo.ps.abs().max()) > 0  # the map was solved after the restore
+
+
+def _collab_pair(words, ccfg):
+    """Two collaborating port facades on the circle sim (agent 1 0.25 m off
+    under a loose prior), as tests/test_request_comm_loop.py sets them up."""
+    from test_collab import PARAMS
+
+    vs = []
+    for uav, (off, sig) in enumerate((((0.0, 0.0, 0.0), 1e-3), ((0.25, 0.0, 0.0), 0.5))):
+        v = tvio.VIO(port_params(PARAMS._replace(sigma_dp=(sig,) * 3)), device=CPU)
+        v.init_at_time(0.0, p=np.asarray(off), v=np.array([1.8, 0.0, 0.0]))
+        v.enable_collab(words, uav_id=uav, ccfg=ccfg, seed=uav)
+        vs.append(v)
+    return vs
+
+
+def _pair_state(v):
+    return (v.fs, v.slots, v._store, v._db, v._kf_meta, v.n_collab_consumed,
+            v.n_keyframes_selected)
+
+
+def test_checkpoint_collab_facade_pair(tmp_path):
+    """Two facades with the collaboration's RANSAC gates on (the default
+    ``pr_ransac_thr``) exchange every 3 frames; a pair restored from a
+    checkpoint of the filter, tracks, match store, keyframe rings and
+    keyframe counters after frame 9 gives the uninterrupted pair's hits,
+    fused counts and states bit for bit over the next exchanges: every
+    draw is keyed on that state, so nothing else is restored."""
+    import dataclasses
+
+    from test_collab import CCFG, TRACKS
+    from torch_helpers import sim_matches
+    from x_multi_agent_torch.parallel import collab as tcollab
+    from x_multi_agent_torch.place_recognition.vocabulary import train_kmajority
+    from x_multi_agent_torch.utils.sim import make_circle_sim as port_sim
+    from x_multi_agent_torch.utils.tree import leaves
+
+    rng = np.random.default_rng(0)
+    desc_table = rng.integers(0, 256, (40, 32)).astype(np.uint8)
+    words = train_kmajority(rng.integers(0, 256, (400, 32)).astype(np.uint8), 16, 5).words
+    ccfg = tcollab.CollabConfig(**CCFG._replace(
+        sigma_landmark=0.02, ci_slam_w=0.5, match_budget=8, desc_ratio_thr=0.9,
+        desc_abs_thr=40.0, pr_score_thr=0.2)._asdict())
+    assert ccfg.pr_ransac_thr > 0
+    sim = port_sim(duration=2.4, imu_rate=100.0, cam_rate=10.0, n_landmarks=30,
+                   match_budget=TRACKS.n_matches, pixel_noise=5e-4, seed=1)
+
+    def feed(vs, frames, imu_i):
+        ex = []
+        for f in frames:
+            lo = imu_i
+            while imu_i < len(sim.imu_t) and sim.imu_t[imu_i] <= sim.cam_t[f] + 1e-9:
+                imu_i += 1
+            m = dataclasses.replace(
+                sim_matches(sim, f), desc=t(desc_table[np.clip(sim.match_id[f], 0, 39)])[None],
+                desc_valid=t(sim.match_valid[f])[None])
+            for v in vs:
+                for i in range(lo, imu_i):
+                    v.process_imu(sim.imu_t[i], i, sim.imu_w[i], sim.imu_a[i])
+                v.process_matches_measurement(sim.cam_t[f], f, m)
+            if f % 3 == 2:
+                for req in range(2):
+                    payload, found = vs[1 - req].process_other_requests(
+                        req, vs[req].get_descriptors())
+                    ex.append((found, vs[req].process_other_measurements(payload, 1 - req)
+                               if found else 0))
+        return ex, imu_i
+
+    k0, n = 9, len(sim.cam_t)
+    vs = _collab_pair(words, ccfg)
+    _, imu_i = feed(vs, range(k0), 0)
+    for i, v in enumerate(vs):
+        checkpoint.save(str(tmp_path / f"agent{i}.npz"), _pair_state(v))
+    ref, _ = feed(vs, range(k0, n), imu_i)
+
+    vs2 = _collab_pair(words, ccfg)
+    for i, v in enumerate(vs2):
+        (v.fs, v.slots, v._store, v._db, v._kf_meta, v.n_collab_consumed,
+         v.n_keyframes_selected) = checkpoint.load(str(tmp_path / f"agent{i}.npz"), _pair_state(v))
+    got, _ = feed(vs2, range(k0, n), imu_i)
+    assert got == ref
+    assert sum(fused for _, fused in ref) > 0, "no match fused after the restore"
+    for v, v2 in zip(vs, vs2):
+        for a, b in zip(leaves(_pair_state(v)), leaves(_pair_state(v2))):
+            assert (torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b)
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_make_circle_sim_matches_jax(seed):
+    """The port's copy of the circle sim gives the reference's arrays field
+    by field (the dry run's per-agent phase and landmark window set)."""
+    from x_multi_agent_torch.utils import sim as tsim
+
+    kw = dict(duration=1.2, imu_rate=100.0, cam_rate=10.0, n_landmarks=30, match_budget=24,
+              pixel_noise=5e-4, seed=seed, phase=0.3, lm_window=(4, 24))
+    ref = make_circle_sim(**kw)
+    got = tsim.make_circle_sim(**kw)
+    assert got._fields == ref._fields
+    for name in ref._fields:
+        np.testing.assert_array_equal(getattr(got, name), getattr(ref, name), err_msg=name)
 
 
 # ---------------------------------------------------------------------------
@@ -429,6 +519,15 @@ def test_render_side_wall_matches_jax():
     u8 = scene.render_wall_frames(t(tex), p, rot, 60, 80, 64.0, 64.0, wall2_x=4.0)
     f64 = scene.render_wall_float(t(tex), p, rot, 60, 80, 64.0, 64.0, wall2_x=4.0)
     assert torch.equal(u8, torch.clamp(f64, 0, 255).to(torch.uint8))
+
+
+def test_orbit_dataset_renders_a_block():
+    """A rank's block of the orbit data (``agents=``) is those agents' rows
+    of the whole fleet's: the same orbits, frames and IMU windows."""
+    full = scene.orbit_dataset(4, 2, 24, 32, CPU, tex_size=256)
+    blk = scene.orbit_dataset(4, 2, 24, 32, CPU, tex_size=256, agents=slice(2, 4))
+    for got, ref in zip((blk[0],) + blk[1], (full[0],) + full[1]):
+        assert torch.equal(got, ref[:, 2:4])
 
 
 def test_generate_agent_dataset_6dof_matches_jax(tmp_path):

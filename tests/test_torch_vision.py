@@ -206,12 +206,93 @@ def test_draw_sample_indices_stay_on_valid_matches():
     mask = torch.zeros((3, 50), dtype=torch.bool)
     mask[0, 10:20] = True
     mask[1, 49] = True  # agent 2 has none: uniform over all
-    g = torch.Generator().manual_seed(0)
-    idx = transac.draw_sample_indices(mask, 96, g)
+    keys = torch.tensor([4, 5, 6], dtype=torch.int32)
+    idx = transac.keyed_sample_indices(mask, 96, 8, 0, keys)
     assert idx.shape == (3, 96, 8)
     assert bool(((idx[0] >= 10) & (idx[0] < 20)).all()) and bool((idx[1] == 49).all())
-    g2 = torch.Generator().manual_seed(0)
-    assert torch.equal(idx, transac.draw_sample_indices(mask, 96, g2))
+    assert len(idx[0].unique()) == 10 and len(idx[2].unique()) > 40
+    assert torch.equal(idx, transac.keyed_sample_indices(mask, 96, 8, 0, keys))
+    assert not torch.equal(idx, transac.keyed_sample_indices(mask, 96, 8, 1, keys))
+
+
+def _keyed_masks(a, n, seed):
+    rng = np.random.default_rng(seed)
+    mask = rng.random((a, n)) < rng.uniform(0.1, 0.9, (a, 1))
+    mask[0] = False  # no valid entry: over all
+    return torch.from_numpy(mask)
+
+
+@pytest.mark.parametrize("a", [1, 3, 7])
+def test_keyed_sample_indices_rows_are_independent(a):
+    """A row's draw depends on its own mask and keys only: the rows drawn
+    together, each alone, and in another order agree, for any A."""
+    mask = _keyed_masks(a, 40, a)
+    t_key = torch.from_numpy(np.linspace(-3.0, 7.0, a))  # float64 times
+    k_key = torch.arange(a, dtype=torch.int32) * 17 - 5
+    idx = transac.keyed_sample_indices(mask, 16, 8, 7, 11, t_key, k_key)
+    for i in range(a):
+        alone = transac.keyed_sample_indices(mask[i:i + 1], 16, 8, 7, 11, t_key[i:i + 1],
+                                             k_key[i:i + 1])
+        assert torch.equal(alone[0], idx[i])
+    perm = torch.from_numpy(np.random.default_rng(a).permutation(a))
+    assert torch.equal(transac.keyed_sample_indices(mask[perm], 16, 8, 7, 11, t_key[perm],
+                                                    k_key[perm]), idx[perm])
+
+
+def test_keyed_sample_indices_are_uniform():
+    """Over many keys the draws fall evenly on a row's valid entries: a
+    chi-square test over 10 valid entries (9 degrees of freedom, 0.1 %
+    critical value 27.88), and over all entries of a row with none."""
+    n_rows = 4000
+    mask = torch.zeros((n_rows, 50), dtype=torch.bool)
+    mask[:, 3:50:5] = True
+    keys = torch.arange(n_rows, dtype=torch.int64) * 7919
+    idx = transac.keyed_sample_indices(mask, 4, 8, 0, keys)
+    assert bool(mask.gather(1, idx.reshape(n_rows, -1)).all())
+    counts = np.bincount(idx.flatten().numpy(), minlength=50)[3:50:5]
+    expect = idx.numel() / 10
+    assert ((counts - expect) ** 2 / expect).sum() < 27.88, counts
+    none = transac.keyed_sample_indices(torch.zeros((n_rows, 8), dtype=torch.bool), 1, 8, 0, keys)
+    counts = np.bincount(none.flatten().numpy(), minlength=8)
+    assert ((counts - none.numel() / 8) ** 2 / (none.numel() / 8)).sum() < 24.32, counts
+
+
+_M32, _GOLD = 0xFFFFFFFF, 0x9E3779B9
+
+
+def _py_mix(x):
+    x ^= x >> 16
+    x = (x * 0x7FEB352D) & _M32
+    x ^= x >> 15
+    x = (x * 0x5BD1E995) & _M32
+    return x ^ (x >> 16)
+
+
+def _py_keyed_draw(valid, n, seed, keys):
+    """The keyed draw of one row in Python integers (no width limit)."""
+    h = _py_mix((seed + _GOLD) & _M32)
+    for k in keys:
+        h = _py_mix(((h + _GOLD) & _M32) ^ (k & _M32))
+    pos = [i for i, v in enumerate(valid) if v] or list(range(len(valid)))
+    return [pos[((_py_mix(((h + _GOLD) & _M32) ^ _py_mix(c + 1)) >> 8) * len(pos)) >> 24]
+            for c in range(n)]
+
+
+def test_keyed_sample_indices_match_python_integers():
+    """Keys near 2^31 and 2^32, negative integers and negative float bits
+    give the draw of the same hash in Python's unbounded integers: the
+    int64 arithmetic never overflows."""
+    import struct
+
+    ints = [2**31 - 1, 2**31, 2**32 - 1, -1, -(2**31), 0]
+    floats = [-1.5, -3.0e38, 0.1, -0.0, 7.25, 1e-30]
+    mask = _keyed_masks(len(ints), 30, 1)
+    idx = transac.keyed_sample_indices(mask, 3, 8, 2**31 + 5, torch.tensor(ints, dtype=torch.int64),
+                                       torch.tensor(floats, dtype=torch.float32), 2**40 + 3)
+    for i, (k, f) in enumerate(zip(ints, floats)):
+        bits = struct.unpack("<I", struct.pack("<f", f))[0]
+        ref = _py_keyed_draw(mask[i].tolist(), 24, 2**31 + 5, [k, bits, 2**40 + 3])
+        assert idx[i].flatten().tolist() == ref, i
 
 
 def test_track_frame_batch_matches_jax():

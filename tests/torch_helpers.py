@@ -171,7 +171,7 @@ def jax_photo_sampler(dtype=jnp.float64):
     """A sampler for the port facade's photometric calibration that repeats
     the reference's keyed draws (:func:`jax_photo_indices`)."""
 
-    def draw(valid, frame):
+    def draw(valid, frame, history=None):
         return torch.from_numpy(jax_photo_indices(valid.cpu().numpy(), frame, dtype)).to(valid.device)
 
     return draw

@@ -4,15 +4,18 @@ of ``x_multi_agent_tpu.ops.ransac``).
 Hypotheses are a fixed batch of normalized 8-point solves (Cholesky inverse
 iteration on A^T A), inlier voting is one (S x N) Sampson-distance matrix.
 
-The sample indices are an INPUT here: the reference draws them with
-``jax.random.categorical``, whose bits torch cannot reproduce, so callers
-draw them (:func:`draw_sample_indices`, from a ``torch.Generator``) or pass
-the reference's own draws in parity tests.
+The sample indices are an INPUT here. The reference draws them with
+``jax.random.categorical`` under a key folded from state (a seed, a time, an
+agent's counter), whose bits torch cannot reproduce; the port draws them
+with :func:`keyed_sample_indices`, a counter-based draw keyed the same way,
+so a draw depends on state alone and a resumed run repeats it. Parity tests
+pass the reference's own draws instead.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -73,31 +76,81 @@ def sampson_dist(f: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor) -> torch.T
     return num / torch.clamp(den, min=1e-12)
 
 
-def draw_sample_indices(mask: torch.Tensor, n_hypotheses: int, generator: torch.Generator,
-                        sample_size: int = 8):
+_M32 = 0xFFFFFFFF
+_GOLD = 0x9E3779B9
+
+
+def _mix(x):
+    """A 32-bit integer hash of ``x``: a Python int, hashed on the host, or
+    an int64 tensor holding 32 bits. Both multipliers are below 2^31, so no
+    product leaves int64."""
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x5BD1E995) & _M32
+    return x ^ (x >> 16)
+
+
+def _key_bits(key, a: int):
+    """One key as 32 bits: a Python int stays one; a tensor becomes (A,)
+    int64, a float key by its float32 bits, as the reference folds
+    ``peer.time``."""
+    if not isinstance(key, torch.Tensor):
+        return int(key) & _M32
+    if key.is_floating_point():
+        key = key.to(torch.float32).view(torch.int32)
+    return key.to(torch.int64).expand(a) & _M32
+
+
+@functools.lru_cache(maxsize=None)
+def _counter_bits(n: int, device: torch.device) -> torch.Tensor:
+    """The hashed counters 1..n, (n,) int64, built once per (n, device)."""
+    return _mix(torch.arange(1, n + 1, dtype=torch.int64, device=device))
+
+
+def keyed_sample_indices(mask: torch.Tensor, n_hypotheses: int, sample_size: int, seed: int,
+                         *keys) -> torch.Tensor:
     """(A, S, sample_size) sample indices per row of ``mask`` (A, N), with
-    replacement, uniform over the row's valid entries (uniform over all
-    when none is valid, as the reference's floored log-probabilities give)."""
+    replacement, uniform over the row's valid entries (over all entries
+    when none is valid, as the reference's floored log-probabilities give).
+
+    A counter-based draw: the row's key h = mix(seed + c) folded with each
+    key k as h = mix((h + c) ^ k); entry (a, s, j) hashes h with the counter
+    s * sample_size + j into 24 bits u and takes the valid entry of rank
+    floor(u * n_valid / 2^24) by inverse CDF. Each key is an (A,) integer or
+    float tensor or a Python int; the seed and the Python-int keys before
+    the first tensor key are folded on the host. A row's indices depend on
+    its own mask and keys only, never on A or the other rows, and are the
+    same bits on every device. Nothing is read back to the host."""
     a, n = mask.shape
-    w = mask.to(torch.float32)
-    w = torch.where(w.sum(-1, keepdim=True) > 0, w, torch.ones_like(w))
-    idx = torch.multinomial(w, n_hypotheses * sample_size, replacement=True, generator=generator)
+    h = _mix((seed + _GOLD) & _M32)
+    for key in keys:
+        h = _mix(((h + _GOLD) & _M32) ^ _key_bits(key, a))
+    h = (h + _GOLD) & _M32
+    ctr = _counter_bits(n_hypotheses * sample_size, mask.device)
+    u = _mix(h[:, None] ^ ctr if isinstance(h, torch.Tensor) else ctr ^ h) >> 8  # (A | 1, S*s)
+    w = mask | ~mask.any(-1, keepdim=True)  # no valid entry: all
+    cdf = torch.cumsum(w, -1)
+    rank = (u * cdf[:, -1:]) >> 24
+    idx = torch.searchsorted(cdf, rank, right=True)
     return idx.reshape(a, n_hypotheses, sample_size)
 
 
-def generator_sampler(generator: torch.Generator, n_hypotheses: int = 200):
-    """The sample-index source of the collaboration's RANSAC gates.
+class KeyedSampler(NamedTuple):
+    """A RANSAC sample-index source, ``sampler(mask (A, N), *keys)`` ->
+    (A, n_hypotheses, sample_size) by :func:`keyed_sample_indices` on
+    (``seed``, keys). The collaboration's gates call it with (salt, t, k):
+    the reference keys that draw on ``PRNGKey(salt)`` folded with the
+    float32 bits of ``t`` (A,) and then with ``k`` (A,). The facade's
+    photometric calibration calls it with (frame, history row). Parity tests
+    pass one that repeats the reference's draw."""
 
-    Those gates call ``sampler(mask, seed, t, k)`` -> (A, S, 8), where the
-    reference would key its draw on ``PRNGKey(seed)`` folded with the float32
-    bits of ``t`` (A,) and then with ``k`` (A,). This sampler draws from
-    ``generator`` and ignores the key; parity tests pass one that repeats
-    the reference's draw."""
+    seed: int = 0
+    n_hypotheses: int = 200
+    sample_size: int = 8
 
-    def draw(mask, seed, t, k):
-        return draw_sample_indices(mask, n_hypotheses, generator)
-
-    return draw
+    def __call__(self, mask, *keys):
+        return keyed_sample_indices(mask, self.n_hypotheses, self.sample_size, self.seed, *keys)
 
 
 def _vote(pts1, pts2, mask, idx, threshold: float):

@@ -20,8 +20,10 @@ Two exchanges, both batched over A agents (the leading axis):
 
 Peers (and requesters) are Python loops in which all agents act at once.
 The rounds read nothing back to the host. RANSAC sample indices come from a
-``sampler`` (``ops.ransac.generator_sampler``): torch cannot repeat the
-reference's ``jax.random`` draws.
+``sampler``, by default ``ops.ransac.KeyedSampler()``: a draw keyed on the
+reference's key material (a salt, the payload time, the receiver's buffer
+head or the sender's id), so each agent's draw follows its own state; torch
+cannot repeat the reference's ``jax.random`` bits.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ from ..device import resolve
 from ..ekf import buffer as rb
 from ..ekf import ekf as ekf_mod
 from ..ops import linalg
-from ..ops.ransac import ransac_inliers
+from ..ops.ransac import KeyedSampler, ransac_inliers
 from ..place_recognition import database as db_mod
 from ..place_recognition.descriptors import knn2_match
 from ..place_recognition.gt_matching import match_landmarks
@@ -139,7 +141,8 @@ def fuse_with_peer_desc(params: VioParams, ccfg: CollabConfig, fs, slots, peer: 
     payload (``peer`` (A, ...), ``peer_valid`` (A,)): kNN(2) with the ratio
     and absolute gates on the SLAM-track descriptors, then the enabled
     gates (epipolar RANSAC over the matched last observations, its indices
-    from ``sampler`` keyed on (7, peer.time, fs.head); pairwise-distance
+    from ``sampler`` (default ``KeyedSampler()``) keyed on (7, peer.time,
+    fs.head); pairwise-distance
     consistency; the cooldown), then one joint CI update of the first
     ``match_budget`` surviving matches at the newest buffer state.
 
@@ -149,8 +152,8 @@ def fuse_with_peer_desc(params: VioParams, ccfg: CollabConfig, fs, slots, peer: 
     use_cooldown = ccfg.refuse_cooldown > 0 and recency is not None
     if recency is None:
         recency = fresh_recency(slots)
-    if ccfg.pr_ransac_thr > 0 and sampler is None:
-        raise ValueError("the RANSAC gate needs a sampler (ops.ransac.generator_sampler)")
+    if sampler is None:
+        sampler = KeyedSampler()
 
     def update_fn(core, vision, cov, aux):
         other_idx, ok = knn2_match(

@@ -106,12 +106,12 @@ def record(
     """Descriptor-match own OPP tracks against a received payload's
     collaborative tracks and SLAM features, gate the matches with an
     epipolar RANSAC (``ransac_thr`` > 0; its sample indices come from
-    ``sampler``, keyed like the reference on (11, payload.time, uav_id), see
-    ``ops.ransac.generator_sampler``), and merge them into the store.
+    ``sampler``, by default ``ops.ransac.KeyedSampler()``, keyed like the
+    reference on (11, payload.time, uav_id)), and merge them into the store.
 
     Own-SLAM x peer-SLAM matches are not stored: the caller fuses them at
     once (``collab.fuse_with_peer_desc``)."""
-    from ..ops.ransac import ransac_inliers
+    from ..ops.ransac import KeyedSampler, ransac_inliers
     from ..place_recognition.descriptors import knn2_match
 
     a = store.own_id.shape[0]
@@ -133,7 +133,7 @@ def record(
 
     if ransac_thr > 0:
         if sampler is None:
-            raise ValueError("the RANSAC gate needs a sampler (ops.ransac.generator_sampler)")
+            sampler = KeyedSampler()
         m = slots.opp_obs.shape[2]
         own_pts = slots.opp_obs[:, :, m - 1]
         # peer side: the matched collaborative track's last valid observation,

@@ -1,0 +1,378 @@
+"""Multi-agent exchange across ranks (port of
+``x_multi_agent_tpu.parallel.mesh``).
+
+The reference's distribution axis is N agents, each its own process,
+exchanging payloads over a radio link (SURVEY §2.9.5, §5.8). Here one
+``torch.distributed`` rank per process holds a contiguous block of agents
+(rank r: agents ``r * blk .. r * blk + blk - 1``, as the TPU mesh shards its
+agent axis); the per-agent filtering runs batched over the block, and the
+exchange rounds are collectives:
+
+  * the full-map round is one ``all_gather`` of the block's payloads, then
+    every agent fuses every peer locally (:func:`sharded_collab_round`);
+  * REQUEST_COMM is one ``all_gather`` of the query VLADs, the responders'
+    scoring against their own keyframe rings, one ``all_to_all`` of the
+    score-gated keyframes responder -> requester, and the requesters' top-K
+    fusion (:func:`sharded_collab_round_desc`).
+
+Each collective ships one flat ``uint8`` buffer (the leaves of its
+containers packed byte for byte). With gloo the buffer is staged through
+host memory, the radio link's analog; with NCCL it stays on the card, and
+NCCL refuses two ranks on one device. The rounds equal the single-process
+rounds of ``parallel.collab`` on the same agents: every row of every
+computation depends on its own agent alone, and the RANSAC draws are keyed
+on each agent's state (``ops.ransac.KeyedSampler``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import io
+import queue as queue_mod
+import time
+import traceback
+from datetime import timedelta
+from typing import Any, Callable, Dict
+
+import torch
+import torch.distributed as dist
+
+from ..device import resolve
+from ..ekf import ekf as ekf_mod
+from ..ops import linalg
+from ..place_recognition import database as db_mod
+from ..utils import tree
+from ..vio import pipeline
+from ..vio import vio as vio_mod
+from . import collab
+
+
+@dataclasses.dataclass
+class AgentMesh:
+    """One rank of the agent mesh: its process group, rank, world size and
+    device, and the bytes each named collective has shipped from this rank
+    to the others (``shipped``)."""
+
+    group: Any
+    rank: int
+    world_size: int
+    device: torch.device
+    backend: str
+    shipped: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+    def block(self, n_agents: int) -> slice:
+        """This rank's agents of ``n_agents``; raises unless the ranks
+        split them evenly."""
+        if n_agents % self.world_size:
+            raise ValueError(f"{n_agents} agents do not split over {self.world_size} ranks")
+        blk = n_agents // self.world_size
+        return slice(self.rank * blk, (self.rank + 1) * blk)
+
+
+def make_agent_mesh(backend: str, init_method: str, rank: int, world_size: int, device=None,
+                    timeout_s: float = 120.0) -> AgentMesh:
+    """Join the process group as ``rank`` of ``world_size`` (one rank per
+    process). ``device=None`` is ``cuda:(rank % device_count)`` and raises
+    without a card. A collective that waits longer than ``timeout_s``
+    raises. NCCL needs a device of its own per rank: asking for it with
+    more ranks than devices raises (use gloo). A CUDA device without an
+    index is ``cuda:(rank % device_count)`` too."""
+    device = resolve(device)  # None -> cuda, or raise without a card
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", rank % torch.cuda.device_count())
+    if backend == "nccl":
+        n_dev = torch.cuda.device_count()
+        if device.type != "cuda" or world_size > n_dev:
+            raise ValueError(f"nccl cannot put {world_size} ranks on {n_dev} CUDA device(s): "
+                             "it refuses two ranks on one device; use backend='gloo'")
+        torch.cuda.set_device(device)
+    dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world_size,
+                            timeout=timedelta(seconds=timeout_s))
+    return AgentMesh(dist.group.WORLD, rank, world_size, device, backend)
+
+
+# ---------------------------------------------------------------------------
+# the wire: containers packed into one uint8 buffer
+# ---------------------------------------------------------------------------
+
+
+def _pack(obj) -> torch.Tensor:
+    """Every tensor leaf of ``obj`` byte for byte, in leaf order."""
+    parts = [x.contiguous().view(torch.uint8).reshape(-1)
+             for x in tree.leaves(obj) if isinstance(x, torch.Tensor)]
+    return torch.cat(parts)
+
+
+def _unpack(buf: torch.Tensor, template):
+    """The inverse of :func:`_pack` into ``template``'s structure, shapes
+    and dtypes (Python scalar leaves are the template's)."""
+    out, off = [], 0
+    for x in tree.leaves(template):
+        if not isinstance(x, torch.Tensor):
+            out.append(x)
+            continue
+        n = x.numel() * x.element_size()
+        out.append(buf[off:off + n].clone().view(x.dtype).reshape(x.shape))
+        off += n
+    return tree.unflatten(template, out)
+
+
+def _send(mesh: AgentMesh, buf: torch.Tensor) -> torch.Tensor:
+    # gloo: the buffer crosses through host memory
+    return buf.cpu() if mesh.backend == "gloo" else buf
+
+
+def _count(mesh: AgentMesh, name: str, nbytes: int) -> int:
+    mesh.shipped[name] = mesh.shipped.get(name, 0) + nbytes
+    return nbytes
+
+
+def all_gather(mesh: AgentMesh, name: str, block):
+    """Every rank's ``block`` (leaves (blk, ...)) concatenated along the
+    agent axis in rank order, and the bytes this rank shipped (its block
+    to each other rank). Counted under ``mesh.shipped[name]``."""
+    buf = _send(mesh, _pack(block))
+    out = [torch.empty_like(buf) for _ in range(mesh.world_size)]
+    dist.all_gather(out, buf, group=mesh.group)
+    nbytes = _count(mesh, name, buf.numel() * (mesh.world_size - 1))
+    return tree.cat([_unpack(b.to(mesh.device), block) for b in out]), nbytes
+
+
+def all_to_all(mesh: AgentMesh, name: str, grid):
+    """Transpose a (blk senders, A receivers, ...) grid across the ranks
+    into (A senders, blk receivers, ...): columns ``q * blk .. q * blk +
+    blk - 1`` go to rank q, and rank p's rows arrive as senders ``p * blk ..``.
+    Returns (the grid, the bytes this rank shipped to other ranks), counted
+    under ``mesh.shipped[name]``."""
+    w = mesh.world_size
+    blk = tree.leaves(grid)[0].shape[0]
+    chunks = [tree.map_leaves(lambda x, q=q: x[:, q * blk:(q + 1) * blk], grid) for q in range(w)]
+    bufs = [_pack(c) for c in chunks]
+    send = _send(mesh, torch.cat(bufs))
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=mesh.group)
+    n = bufs[0].numel()
+    nbytes = _count(mesh, name, n * (w - 1))
+    parts = [_unpack(recv[p * n:(p + 1) * n].to(mesh.device), chunks[0]) for p in range(w)]
+    return tree.cat(parts), nbytes
+
+
+def gather_blocks(mesh: AgentMesh, obj):
+    """Every rank's block of ``obj`` (leaves (blk, ...)) as one stack on
+    rank 0 (``None`` on the others), for tests and the dry run."""
+    full, _ = all_gather(mesh, "gather_blocks", obj)
+    return full if mesh.rank == 0 else None
+
+
+# ---------------------------------------------------------------------------
+# the sharded step and rounds
+# ---------------------------------------------------------------------------
+
+
+def init_agents(params: vio_mod.VioParams, n_agents: int, mesh: AgentMesh):
+    """This rank's block of ``n_agents`` freshly initialized agents: (fs,
+    slots), leaves (blk, ...), on the mesh's device."""
+    sl = mesh.block(n_agents)
+    return vio_mod.init_at_time(params, 0.0, sl.stop - sl.start, mesh.device)
+
+
+def agent_step_fn(params: vio_mod.VioParams):
+    """The per-agent full step, batched over the leading agent axis: an IMU
+    batch, then one match-driven visual update. Returns (fs, slots,
+    applied (A,))."""
+
+    def step(fs, slots, imu_times, imu_seqs, imu_w, imu_a, meas_time,
+             meas: pipeline.FrameMeasurement):
+        fs = ekf_mod.process_imu_batch_impl(params.ekf_params, fs, imu_times, imu_seqs, imu_w,
+                                            imu_a)
+        return vio_mod.process_matches(params, fs, slots, meas_time, meas)
+
+    return step
+
+
+def sharded_step(params: vio_mod.VioParams, mesh: AgentMesh):
+    """The multi-rank step: :func:`agent_step_fn` on this rank's block, no
+    collective (the agents are data-parallel). Raises on CUDA if TF32
+    matmuls are on."""
+    step = agent_step_fn(params)
+
+    def _step(*args):
+        linalg.require_fp32_matmul(mesh.device, "sharded_step")
+        return step(*args)
+
+    return _step
+
+
+def sharded_collab_round(params: vio_mod.VioParams, ccfg: collab.CollabConfig, mesh: AgentMesh):
+    """One full-map exchange round over the ranks: each rank extracts its
+    block's payloads, one ``all_gather`` (collective ``"payloads"``) stacks
+    all A in agent order, and each local agent fuses every peer b = 0..A-1
+    in order, its own masked, as ``collab.collaborative_round`` does.
+
+    Returns ``fs_blk -> (fs_blk, n_matches (blk, A))``."""
+
+    def _round(fs_blk):
+        linalg.require_fp32_matmul(mesh.device, "sharded_collab_round")
+        blk = fs_blk.cov.shape[0]
+        a = blk * mesh.world_size
+        payloads, _ = all_gather(mesh, "payloads", collab.extract_payload(params, fs_blk))
+        my_ids = torch.arange(mesh.rank * blk, (mesh.rank + 1) * blk, device=mesh.device)
+        ns = []
+        for b in range(a):
+            peer = tree.map_leaves(lambda x: x[b].expand((blk,) + x.shape[1:]), payloads)
+            fs_blk, n = collab.fuse_with_peer(params, ccfg, fs_blk, peer, my_ids != b)
+            ns.append(n)
+        return fs_blk, torch.stack(ns, dim=1)
+
+    return _round
+
+
+def sharded_collab_round_desc(params: vio_mod.VioParams, ccfg: collab.CollabConfig,
+                              words: torch.Tensor, mesh: AgentMesh):
+    """Descriptor place recognition + REQUEST_COMM over the ranks, the four
+    steps of the reference's mesh round:
+
+      1. one ``all_gather`` of the block's query VLADs (collective
+         ``"vlads"``);
+      2. each local responder answers the requesters 0..A-1 in order with
+         ``database.find_candidate_scored`` (each answer marks a keyframe
+         served, which the next requester sees; a self-request is no hit);
+      3. one ``all_to_all`` (collective ``"keyframes"``) routes the (blk
+         responders, A requesters) grid of keyframes, hits and scores to
+         the requesters' ranks as (A responders, blk requesters); a miss
+         carries a zero payload, so the shapes are fixed;
+      4. each local requester keeps its ``top_k_peers`` best responders
+         (``collab.top_k_select``) and fuses them with
+         ``collab.fuse_with_peer_desc`` (RANSAC draws keyed on each
+         agent's state, ``KeyedSampler()``).
+
+    Returns ``(fs_blk, slots_blk, db_blk) -> (fs_blk, db_blk, hits (blk, A
+    responders), n_matches (blk, K))``, equal to the rows of
+    ``collab.request_response_round`` on the same agents. Raises when A
+    exceeds the served bitmap (``DbDims.max_agents``)."""
+
+    def _round(fs_blk, slots_blk, db_blk):
+        linalg.require_fp32_matmul(mesh.device, "sharded_collab_round_desc")
+        blk = fs_blk.cov.shape[0]
+        a = blk * mesh.world_size
+        if a > db_blk.served.shape[-1]:
+            raise ValueError(f"{a} agents exceed the served bitmap of {db_blk.served.shape[-1]} "
+                             "(raise DbDims.max_agents)")
+        dev = mesh.device
+        my_ids = torch.arange(mesh.rank * blk, (mesh.rank + 1) * blk, device=dev)
+
+        # 1. the request broadcast
+        vlads, _ = all_gather(mesh, "vlads", collab.query_vlad(words, slots_blk))  # (A, W, 32)
+
+        # 2. the responders, requester by requester
+        idx_cols, hit_cols, score_cols = [], [], []
+        for r in range(a):
+            idx, found, score, db_blk = db_mod.find_candidate_scored(
+                db_blk, r, vlads[r].expand((blk,) + vlads.shape[1:]), ccfg.pr_score_thr)
+            idx_cols.append(idx)
+            hit_cols.append(found & (my_ids != r))
+            score_cols.append(score)
+        hit_grid = torch.stack(hit_cols, 1)  # (blk responders, A requesters)
+        kf_grid = tree.map_leaves(lambda x: tree.take(x, torch.stack(idx_cols, 1)), db_blk.payload)
+        kf_grid = tree.where(hit_grid, kf_grid, tree.map_leaves(torch.zeros_like, kf_grid))
+
+        # 3. the score-gated ship, responder -> requester
+        (kf_by_req, hit_by_req, score_by_req), _ = all_to_all(
+            mesh, "keyframes", (kf_grid, hit_grid, torch.stack(score_cols, 1)))
+
+        # 4. top-K fan-in and fusion
+        sel, sel_valid = collab.top_k_select(hit_by_req.T, score_by_req.T, ccfg.top_k_peers)
+        ar = torch.arange(blk, device=dev)
+        ns = []
+        for kk in range(sel.shape[1]):
+            b = sel[:, kk].long()
+            kf = tree.map_leaves(lambda x: x[b, ar], kf_by_req)
+            fs_blk, n, _ = collab.fuse_with_peer_desc(params, ccfg, fs_blk, slots_blk, kf,
+                                                      sel_valid[:, kk])
+            ns.append(n)
+        hits = torch.zeros((blk, a), dtype=torch.int32, device=dev).scatter_reduce(
+            1, sel.long(), sel_valid.to(torch.int32), "amax") > 0
+        return fs_blk, db_blk, hits, torch.stack(ns, dim=1)
+
+    return _round
+
+
+# ---------------------------------------------------------------------------
+# starting the ranks
+# ---------------------------------------------------------------------------
+
+
+def _to_cpu(obj):
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_to_cpu(v) for v in obj]
+    return tree.map_leaves(lambda x: x.cpu(), obj)
+
+
+def _rank_main(rank: int, fn: Callable, world_size: int, backend: str, init_method: str,
+               args: tuple, device, timeout_s: float, results) -> None:
+    """One rank's process: join the mesh, run ``fn(mesh, *args)``, send its
+    result (serialized with ``torch.save``, tensors moved to the CPU) or its
+    traceback to the parent."""
+    torch.set_num_threads(1)
+    mesh = None
+    try:
+        mesh = make_agent_mesh(backend, init_method, rank, world_size, device, timeout_s)
+        out = _to_cpu(fn(mesh, *args))
+        buf = io.BytesIO()
+        torch.save(out, buf)
+        results.put((rank, True, buf.getvalue()))
+    except Exception:
+        results.put((rank, False, traceback.format_exc()))
+        raise
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
+
+
+def spawn_agents(fn: Callable, world_size: int, backend: str, init_method: str, args: tuple = (),
+                 timeout_s: float = 300.0, device=None) -> list:
+    """Run ``fn(mesh, *args)`` on ``world_size`` spawned ranks (one process
+    each, ``torch.multiprocessing`` spawn, one CPU thread each) and return
+    their results in rank order. ``fn`` must be importable by the children
+    (a module-level function of a module that imports no JAX). ``device``:
+    each rank's, as :func:`make_agent_mesh` takes it. A rank that raises
+    fails the call with its traceback; when ``timeout_s`` runs out (the
+    ranks' collectives time out then too) every rank is killed and the call
+    raises ``TimeoutError``."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_rank_main, daemon=True,
+                         args=(r, fn, world_size, backend, init_method, args, device, timeout_s,
+                               results))
+             for r in range(world_size)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout_s
+    got: Dict[int, Any] = {}
+    try:
+        while len(got) < world_size:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise TimeoutError(f"ranks {sorted(set(range(world_size)) - set(got))} did not "
+                                   f"finish within {timeout_s} s")
+            try:
+                rank, ok, payload = results.get(timeout=min(left, 1.0))
+            except queue_mod.Empty:
+                dead = [r for r, p in enumerate(procs) if r not in got and p.exitcode not in (None, 0)]
+                if dead:
+                    raise RuntimeError(f"rank(s) {dead} died without a result "
+                                       f"(exit codes {[procs[r].exitcode for r in dead]})")
+                continue
+            if not ok:
+                raise RuntimeError(f"rank {rank} failed:\n{payload}")
+            got[rank] = torch.load(io.BytesIO(payload), weights_only=False)
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1.0))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10.0)
+        results.close()
+    return [got[r] for r in range(world_size)]

@@ -16,9 +16,11 @@
   * image correction, plain clipped or with the cyclic fold + triangular LUT.
 
 The RANSAC sample indices are an INPUT (``idx``): the reference draws them
-with ``jax.random.categorical``, whose bits torch cannot reproduce. Callers
-draw them with :func:`generator_sampler` or pass the reference's own draws
-in parity tests. Nothing here reads a tensor back to the host.
+with ``jax.random.categorical`` under ``PRNGKey(frame)``, whose bits torch
+cannot reproduce. Callers draw them with ``ops.ransac.KeyedSampler(seed,
+N_HYPOTHESES, SAMPLE_SIZE)``, keyed on the frame and the history as the
+reference is, or pass the reference's own draws in parity tests. Nothing
+here reads a tensor back to the host.
 """
 from __future__ import annotations
 
@@ -29,7 +31,6 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..device import resolve
-from ..ops.ransac import draw_sample_indices
 
 REG_W = 0.1
 RANSAC_THR = 8.0e-3
@@ -98,19 +99,6 @@ def estimate_gains_ransac(
     enough = torch.sum(valid, -1) >= 4
     n_inl = torch.where(enough, torch.gather(votes, -1, best)[..., 0], 0).to(torch.int32)
     return torch.where(enough, a, 1.0), torch.where(enough, b, 0.0), n_inl
-
-
-def generator_sampler(generator: torch.Generator):
-    """The RANSAC sample-index source of the facade's calibration:
-    ``sampler(valid (Fh, J), frame) -> (Fh, N_HYPOTHESES, 4)``, uniform over
-    each history's valid pairs (over all pairs when none is valid). The
-    reference keys its draw on ``PRNGKey(frame)``; this sampler draws from
-    ``generator`` and ignores ``frame``."""
-
-    def draw(valid, frame):
-        return draw_sample_indices(valid, N_HYPOTHESES, generator, SAMPLE_SIZE)
-
-    return draw
 
 
 # ---------------------------------------------------------------------------

@@ -418,16 +418,17 @@ def orbit_start(n_agents: int):
 
 
 def orbit_dataset(n_agents: int, n_frames: int, h: int, w: int, device, tex_size: int = 2048,
-                  m_per_px: float = 0.004):
+                  m_per_px: float = 0.004, agents: slice = slice(None)):
     """The image benchmark's data: per-agent 6-DoF orbits (radius 1.5 m,
     0.6 rad/s, phases spread over the circle, 20 Hz camera, 200 Hz IMU, 10
     IMU samples per frame) over the textured wall, fx = fy = 0.8 w.
 
     Returns frames (n_frames, A, h, w) float32 on ``device`` and the IMU
     windows (times, seqs, w_m, a_m), each (n_frames, A, 10, ...), float32 /
-    int32 on ``device``."""
+    int32 on ``device``, for the ``agents`` of the ``n_agents`` orbits (a
+    rank's block renders only its own)."""
     tex = make_texture(0, size=tex_size, device=device)
-    trajs = _orbits(n_agents, n_frames)
+    trajs = _orbits(n_agents, n_frames)[agents]
     p_all = np.stack([t_["cam_p"][:n_frames] for t_ in trajs], axis=1)
     r_all = np.stack([t_["cam_rot"][:n_frames] for t_ in trajs], axis=1)
     fx = 0.8 * w

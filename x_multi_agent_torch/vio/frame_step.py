@@ -33,18 +33,19 @@ def frame_step(
     w_ms: torch.Tensor,  # (A, L, 3)
     a_ms: torch.Tensor,  # (A, L, 3)
     meas_time: torch.Tensor,  # (A,) frame time
-    generator: Optional[torch.Generator] = None,
+    seed: int = 0,
     ransac_idx: Optional[torch.Tensor] = None,
 ):
     """One frame for every agent. Returns (tstate, fs, slots, matches,
-    applied (A,)).
+    applied (A,)). The tracker's RANSAC draws are keyed on (``seed``, each
+    agent's ``next_id``) unless ``ransac_idx`` gives them.
 
     On CUDA tensors the filter algebra must run in full fp32: raises if
     TF32 matmuls are on (``torch.backends.cuda.matmul.allow_tf32``). The
     step runs no cuDNN operation, so the cuDNN flag does not matter here."""
     linalg.require_fp32_matmul(imgs.device, "frame_step")
     tstate, matches = trk.track_frame_batch(
-        tparams, cam, tstate, imgs, generator=generator, ransac_idx=ransac_idx
+        tparams, cam, tstate, imgs, seed=seed, ransac_idx=ransac_idx
     )
     meas = pipeline.FrameMeasurement.from_matches(params.cfg, matches)
     ekf_p = params.ekf_params

@@ -19,6 +19,7 @@ from ..ekf import ekf as ekf_mod
 from ..ekf.propagator import ImuNoise
 from ..ekf.state import CoreState, FilterState, VisionState
 from ..ops import lie, linalg
+from ..ops.ransac import KeyedSampler
 from ..photometric import calib
 from ..utils.const import constant
 from ..vision.image import bilinear_sample
@@ -405,17 +406,15 @@ class VIO:
     # -- image path ----------------------------------------------------------
 
     def setup_tracker(self, tracker_params, camera, img_height: int, img_width: int,
-                      generator=0):
-        """Attach the vision front end. ``generator``: a ``torch.Generator``
-        on the facade's device, or a seed for one; it draws the RANSAC
-        hypotheses."""
+                      seed: int = 0):
+        """Attach the vision front end. The RANSAC hypotheses are keyed on
+        (``seed``, the tracker state's id counter), so a restored tracker
+        state draws what the uninterrupted run drew."""
         from ..vision import tracker as trk_mod
 
-        if not isinstance(generator, torch.Generator):
-            generator = torch.Generator(device=self.device).manual_seed(int(generator))
         self._tracker_params = tracker_params
         self._camera = camera
-        self._generator = generator
+        self._seed = int(seed)
         self._img_hw = (img_height, img_width)
         self._tracker_state = trk_mod.TrackerState.zero(
             tracker_params, 1, img_height, img_width, self.params.tdtype, self.device
@@ -424,7 +423,7 @@ class VIO:
     def enable_photometric(self, n_obs: int = 100, epsilon_gap: float = 0.02,
                            epsilon_base: float = 0.005, n_history: int = 3,
                            spatial: bool = False, cell_px: int = 40, spatial_every: int = 10,
-                           spatial_window: int = 64, generator=0):
+                           spatial_window: int = 64, seed: int = 0):
         """Online thermal gain calibration (the reference's
         PHOTOMETRIC_CALI). Each image is corrected with the newest gains
         before tracking (a one-frame lag); after tracking, the gains update
@@ -441,9 +440,9 @@ class VIO:
         static field cancels out of frame-to-frame LK) and keeps it off by
         default, as here.
 
-        ``generator`` (a ``torch.Generator`` on the facade's device, or a
-        seed) draws the RANSAC hypotheses; ``self.photo_sampler`` may be
-        replaced by any ``calib.generator_sampler``-style callable. The
+        The RANSAC hypotheses are keyed on (``seed``, the frame counter
+        ``photo.frame``, the history); ``self.photo_sampler`` may be
+        replaced by any ``ops.ransac.KeyedSampler``-style callable. The
         reference re-samples history frames stored as images by old
         checkpoints; the port stores sampled intensities only and has no
         such branch. Call after :meth:`setup_tracker`."""
@@ -451,15 +450,13 @@ class VIO:
             raise RuntimeError("call setup_tracker first")
         if spatial and spatial_window < n_history:
             raise ValueError("spatial_window must hold one frame's rows of every history")
-        if not isinstance(generator, torch.Generator):
-            generator = torch.Generator(device=self.device).manual_seed(int(generator))
         h, w = self._img_hw
         self._photo_cfg = PhotoConfig(
             dims=calib.PhotoDims(n_history=n_history, n_obs=n_obs), epsilon_gap=epsilon_gap,
             epsilon_base=epsilon_base, cell_px=cell_px, n_cells_x=-(-w // cell_px),
             n_cells_y=-(-h // cell_px), spatial_every=spatial_every,
         )
-        self.photo_sampler = calib.generator_sampler(generator)
+        self.photo_sampler = KeyedSampler(int(seed), calib.N_HYPOTHESES, calib.SAMPLE_SIZE)
         self.photo = FacadePhoto.zero(self._photo_cfg, (h, w), n_obs * spatial_window if spatial else 0,
                                       self.params.tdtype, self.device)
 
@@ -481,7 +478,9 @@ class VIO:
                                self.device)
             state, a_cur, b_cur = calib.process_frame(
                 cfg.dims, state, ph.hist_int, cur_int.expand(fh, n), pair_valid, offsets,
-                self.photo_sampler(pair_valid, ph.frame), cfg.epsilon_gap, cfg.epsilon_base,
+                self.photo_sampler(pair_valid, ph.frame, constant(tuple(range(fh)), torch.int64,
+                                                                  self.device)),
+                cfg.epsilon_gap, cfg.epsilon_base,
             )
             if spatial is not None:
                 spatial = _accumulate_spatial(cfg, ph, state, cur_pts, cur_int, pair_valid,
@@ -505,7 +504,7 @@ class VIO:
 
     def process_image_measurement(self, t: float, seq: int, img, ransac_idx=None):
         """Track features in the (H, W) image, then run the visual update.
-        ``ransac_idx`` (1, S, 8) replaces the generator's RANSAC draws. With
+        ``ransac_idx`` (1, S, 8) replaces the keyed RANSAC draws. With
         photometric calibration on, the tracker sees the corrected image and
         the gains update from the raw one."""
         from ..vision import tracker as trk_mod
@@ -518,7 +517,7 @@ class VIO:
             img = calib.correct_image(raw, a, b, params_ps=self.photo.ps).to(self.params.tdtype)
         self._tracker_state, matches = trk_mod.track_frame(
             self._tracker_params, self._camera, self._tracker_state, img,
-            generator=self._generator, ransac_idx=ransac_idx,
+            seed=self._seed, ransac_idx=ransac_idx,
         )
         if self.photo is not None:
             self._photometric_update(raw)
@@ -595,28 +594,26 @@ class VIO:
     # -- multi-agent collaboration (request-response) ---------------------------
 
     def enable_collab(self, words, uav_id: int = 0, db_dims=None, ccfg=None, store_dims=None,
-                      generator=0):
+                      seed: int = 0):
         """Attach the collaborative stack: keyframe ring with VLAD
         vocabulary ``words`` (W, 32) and a persistent cross-agent match
         store. After this every applied visual update runs the
         keyframe-selection heuristic and consumes stored matches.
-        ``generator`` (a ``torch.Generator`` on the facade's device, or a
-        seed) draws the RANSAC gates' hypotheses; ``self.sampler`` may be
-        replaced by any ``ops.ransac.generator_sampler``-style callable."""
-        from ..ops.ransac import generator_sampler
+        The RANSAC gates' hypotheses are keyed on (``seed``, the gate's
+        salt, the payload time, the receiver's buffer head or the sender's
+        id); ``self.sampler`` may be replaced by any
+        ``ops.ransac.KeyedSampler``-style callable."""
         from ..parallel import collab as collab_mod, match_store as ms_mod
         from ..place_recognition import database as db_mod
 
         if self.fs is None:
             raise RuntimeError("call init_at_time first")
-        if not isinstance(generator, torch.Generator):
-            generator = torch.Generator(device=self.device).manual_seed(int(generator))
         self._words = torch.as_tensor(words, dtype=torch.uint8, device=self.device)
         self._uav_id = int(uav_id)
         self._db_dims = db_dims or db_mod.DbDims(n_words=int(self._words.shape[0]))
         self._ccfg = ccfg or collab_mod.CollabConfig()
         self._store_dims = store_dims or ms_mod.StoreDims()
-        self.sampler = generator_sampler(generator)
+        self.sampler = KeyedSampler(int(seed))
         proto = collab_mod.extract_payload_desc(self.params, self.fs, self.slots)
         self._db = db_mod.KeyframeDB.zero(self._db_dims, proto)
         self._reset_collab_state()

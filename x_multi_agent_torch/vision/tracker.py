@@ -14,7 +14,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..device import resolve
-from ..ops.ransac import draw_sample_indices, ransac_inliers
+from ..ops.ransac import keyed_sample_indices, ransac_inliers
 from ..place_recognition import descriptors
 from ..utils.tree import scatter_dump, take
 from ..vio.track_manager import Matches, stable_partition
@@ -117,7 +117,7 @@ def _suppress(params: TrackerParams, h: int, w: int, xy, score, level, valid,
 
 
 def _track_core(params, cam, state: TrackerState, imgs, pyr_prev, pyr_cur, ransac_idx,
-                generator):
+                seed: int):
     """LK + RANSAC + match construction (everything except detection).
     Returns (matches, tracked, cur_pts)."""
     a, f = state.ids.shape
@@ -128,7 +128,9 @@ def _track_core(params, cam, state: TrackerState, imgs, pyr_prev, pyr_cur, ransa
         half_win=params.win_half, n_iters=params.lk_iters, min_eig_thr=params.min_eig_thr,
     )
     if ransac_idx is None:
-        ransac_idx = draw_sample_indices(ok, params.ransac_hypotheses, generator)
+        # keyed on the agent's id counter, as the reference folds next_id
+        # into its key: the hypotheses vary per frame and follow the state
+        ransac_idx = keyed_sample_indices(ok, params.ransac_hypotheses, 8, seed, state.next_id)
     inliers = ransac_inliers(state.pts, cur_pts, ok, ransac_idx, params.ransac_threshold_px)
     tracked = ok & inliers
 
@@ -198,26 +200,25 @@ def track_frame_batch(
     cam: cam_mod.Camera,
     state: TrackerState,
     imgs: torch.Tensor,  # (A, H, W)
-    generator: Optional[torch.Generator] = None,
+    seed: int = 0,
     ransac_idx: Optional[torch.Tensor] = None,
 ) -> Tuple[TrackerState, Matches]:
     """One tracker frame for a batch of agents.
 
     RANSAC hypotheses come from ``ransac_idx`` (A, S, 8) when given, else
-    they are drawn over each agent's LK-valid matches from ``generator``.
+    they are drawn over each agent's LK-valid matches, keyed on (``seed``,
+    the agent's ``next_id``) (``ops.ransac.keyed_sample_indices``).
 
     Detection runs only when at least one agent has fewer than
     ``n_feat_min`` live tracks (the reference's batch-level ``lax.cond``);
     the test is a Python branch here, so it costs one device-to-host sync
     per frame. Per agent, only agents below the minimum append candidates.
     """
-    if ransac_idx is None and generator is None:
-        raise ValueError("pass a torch.Generator or the RANSAC sample indices")
     depth = params.lk_max_level
     pyr_prev = build_pyramid(state.prev_img, depth)
     pyr_cur = build_pyramid(imgs, depth)
     matches, tracked, cur_pts = _track_core(
-        params, cam, state, imgs, pyr_prev, pyr_cur, ransac_idx, generator
+        params, cam, state, imgs, pyr_prev, pyr_cur, ransac_idx, seed
     )
     need_detect = torch.sum(tracked, dim=1) < params.n_feat_min  # (A,)
     if bool(need_detect.any()):
@@ -247,10 +248,10 @@ def track_frame(
     cam: cam_mod.Camera,
     state: TrackerState,
     img: torch.Tensor,  # (H, W)
-    generator: Optional[torch.Generator] = None,
+    seed: int = 0,
     ransac_idx: Optional[torch.Tensor] = None,
 ) -> Tuple[TrackerState, Matches]:
     """One tracker frame for a single agent: :func:`track_frame_batch` at
     A = 1 (``state``, the matches and ``ransac_idx`` keep their agent axis
     of 1)."""
-    return track_frame_batch(params, cam, state, img[None], generator, ransac_idx)
+    return track_frame_batch(params, cam, state, img[None], seed, ransac_idx)
