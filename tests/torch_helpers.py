@@ -177,10 +177,7 @@ def jax_photo_sampler(dtype=jnp.float64):
     return draw
 
 
-def jax_frame_indices(jp, state, imgs):
-    """Regenerate, per agent, the RANSAC indices the reference's
-    track_frame_batch draws inside _track_core."""
-
+def _frame_indices(jp, state, imgs):
     def one(s, im):
         pp = jimg.build_pyramid(s.prev_img, jp.lk_max_level)
         pc = jimg.build_pyramid(im, jp.lk_max_level)
@@ -188,4 +185,14 @@ def jax_frame_indices(jp, state, imgs):
                           n_iters=jp.lk_iters, min_eig_thr=jp.min_eig_thr)
         return jax_sample_indices(ok, s.next_id, jp.ransac_hypotheses)
 
-    return np.asarray(jax.vmap(one)(state, imgs))
+    return jax.vmap(one)(state, imgs)
+
+
+# compiled once per tracker configuration, as the reference's tracker is
+_frame_indices_jit = jax.jit(_frame_indices, static_argnums=0)
+
+
+def jax_frame_indices(jp, state, imgs):
+    """Regenerate, per agent, the RANSAC indices the reference's
+    track_frame_batch draws inside _track_core."""
+    return np.asarray(_frame_indices_jit(jp, state, imgs))

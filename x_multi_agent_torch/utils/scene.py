@@ -52,10 +52,15 @@ def make_texture(seed: int = 0, size: int = 2048, octaves: int = 5, device=None)
         rx, ry = rng.uniform(6, 60, 2)
         th = rng.uniform(0, np.pi)
         amp = rng.uniform(1.5, 4.0) * rng.choice([-1.0, 1.0])
-        dx, dy = xx - cx, yy - cy
+        # the ellipse lies within max(rx, ry) of its centre: only that box
+        # can change (the same per-pixel values as over the whole image)
+        r = int(np.ceil(max(rx, ry))) + 1
+        r0, r1 = max(int(cy) - r, 0), min(int(cy) + r + 1, size)
+        c0, c1 = max(int(cx) - r, 0), min(int(cx) + r + 1, size)
+        dx, dy = xx[:, c0:c1] - cx, yy[r0:r1] - cy
         u = (dx * np.cos(th) + dy * np.sin(th)) / rx
         v = (-dx * np.sin(th) + dy * np.cos(th)) / ry
-        out += amp * ((u * u + v * v) < 1.0)
+        out[r0:r1, c0:c1] += amp * ((u * u + v * v) < 1.0)
     out -= out.min()
     out *= 255.0 / out.max()
     return out.to(torch.uint8)
