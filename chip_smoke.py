@@ -112,10 +112,27 @@ Phases (any failure raises, so the exit code is non-zero):
      printed, not asserted; then K1 and K2 on the last frame's detection
      and LK levels of this path (A = 1) against their plain versions under
      phases 1 and 2's gates, and per launch as in phase 4. The phase's wall
-     time is printed against its 180 s budget.
+     time is printed against its 180 s budget;
+ 12. the ATE-report studies (``utils/harsh_recovery.py``,
+     ``photometric_ablation.py``, ``debug_collab_gates.py``) at 480x640 in
+     a temporary dataset directory: harsh recovery (preset harsh, the
+     degraded agent's cheap IMU, 6 s, the camera black over frames 15-39)
+     with the health monitor off, then on; the photometric ablation's three
+     modes (off, global, spatial) at 3 s on the vignette-0.30 dataset, with
+     its verdict; the gate bisect after 30 frames of agents 0 and 2 with
+     the random vocabulary (kNN count, matches applied under each of the
+     seven gate variants, the served keyframe's receive); asserts no
+     re-init with the monitor off and at least one with it on, every
+     position finite (with the monitor on, and in every ablation mode), a
+     kNN match, and after each variant a finite, symmetric covariance with
+     a positive position block; K1 and K2 launched; then K1 and K2 on the
+     harsh pass's last frame (timed as in phase 4) and on its black frame
+     20 against their plain versions under phases 1 and 2's gates, and on
+     an all-zero frame (no corner, no ``ok``, finite flows). The phase's
+     wall time is printed against its 120 s budget.
 
 The last three lines of standard output are the kernels' JSON record (the
-launch counts summed over the paths of phases 3, 5-9, 10's ranks and 11,
+launch counts summed over the paths of phases 3, 5-9, 10's ranks, 11 and 12,
 each read from 0 around its path; phase 4's times per launch), the card's
 ``nvidia-smi`` name and power limit, and the result JSON.
 """
@@ -133,6 +150,11 @@ N_RC, RC_ROUNDS = 20, (15, 20)  # request-response fleet: frames, rounds after t
 N_WORDS, EXCHANGE_EVERY = 64, 3
 N_RANKS = 2  # phase 10: gloo ranks of the multi-rank exchange, all on the one card
 ATE_DURATION, ATE_BUDGET_S = 3.0, 180.0  # phase 11: 30 frames per pass; its wall budget
+# phase 12: the harsh pass's length, its camera blackout (frames) and the
+# black frame whose kernel inputs are held; the ablation's length; the gate
+# bisect's frames (of a dataset of STUDY_DURATION); the phase's wall budget
+STUDY_DURATION, STUDY_OUTAGE, STUDY_BLACK_FRAME = 6.0, (15, 40), 20
+STUDY_ABLATION_DURATION, STUDY_GATE_FRAMES, STUDY_BUDGET_S = 3.0, 30, 120.0
 # phase 9: the reference's thermal e2e drift, the accuracy report's vignette
 # and noise, its calibration budget; spatial cells and cadence
 THERMAL_GAINS = [(1.0 + 0.01 * k, 0.002 * k) for k in range(N_FACADE)]
@@ -193,13 +215,14 @@ def _device_us(event) -> float:
     raise AttributeError("profiler event has no device time")
 
 
-def device_ms(torch, fn, symbol: str, reps: int = 20, tries: int = 3) -> float:
+def device_ms(torch, fn, symbol: str, reps: int = 20, tries: int = 5, strict: bool = True):
     """Mean device milliseconds of the kernel whose name holds ``symbol``,
     from a ``torch.profiler`` trace of ``reps`` calls of ``fn`` (after a
     warm-up call), each launching it once. The tracer sometimes drops
-    events (11 of 40 kept once): the mean is over the launches it kept, the
-    trace is taken again while it kept fewer than half, and it fails if it
-    keeps none."""
+    events (11 of 40 kept once, none of 20 in three traces once): the mean
+    is over the launches it kept, the trace is taken again while it kept
+    fewer than half, and when it keeps none it fails (``strict``) or
+    returns None (not measured)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -214,7 +237,9 @@ def device_ms(torch, fn, symbol: str, reps: int = 20, tries: int = 3) -> float:
         if 2 * len(evs) >= reps:
             break
     if not evs:
-        raise AssertionError(f"the profiler saw no launch of {symbol}")
+        if strict:
+            raise AssertionError(f"the profiler saw no launch of {symbol}")
+        return None
     return sum(_device_us(e) for e in evs) / 1e3 / len(evs)
 
 
@@ -273,11 +298,12 @@ def k2_agrees(stt) -> bool:
             and stt["n_both_ok"] > 0)
 
 
-def kernel_times(torch, fast, lk, det_levels, level_inputs, thr) -> dict:
+def kernel_times(torch, fast, lk, det_levels, level_inputs, thr, strict: bool = True) -> dict:
     """K1 on one detection frame's levels and K2 on one frame's LK levels,
     per launch (means over the frame's launches): CUDA-event ms, profiler
-    device ms (each level traced on its own), the plain version's ms, the
-    bound and what bounds it."""
+    device ms (each level traced on its own; None where the profiler kept
+    no event and not ``strict``), the plain version's ms, the bound and
+    what bounds it."""
     calls = {
         "fast": ("fast_score_nms_kernel",
                  [lambda i=i: fast.fast_score_nms(i, thr) for i in det_levels],
@@ -294,13 +320,14 @@ def kernel_times(torch, fast, lk, det_levels, level_inputs, thr) -> dict:
         t_bytes = sum(b for b, _ in work) / PEAK_BYTES * 1e3
         t_ops = sum(o for _, o in work) / peak * 1e3
         bound = sum(max(b / PEAK_BYTES, o / peak) for b, o in work) * 1e3 / n
+        dev = [device_ms(torch, f, symbol, strict=strict) for f in launches]
         r = {"ms": _ms(torch, lambda: [f() for f in launches]) / n,
-             "device_ms": sum(device_ms(torch, f, symbol) for f in launches) / n,
+             "device_ms": None if None in dev else sum(dev) / n,
              "plain_ms": _ms(torch, plain) / n, "bound_ms": bound,
              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
              "library_ms": None, "launches_per_frame": n,
              "bytes_per_frame": sum(b for b, _ in work), "ops_per_frame": sum(o for _, o in work)}
-        r["share_of_bound"] = r["bound_ms"] / r["device_ms"]
+        r["share_of_bound"] = r["bound_ms"] / r["device_ms"] if r["device_ms"] else None
         out[name] = r
     return out
 
@@ -1011,36 +1038,217 @@ def check_ate_report(ate, launches, card) -> None:
                   "shorten ATE_DURATION", file=out)
 
 
-def ate_kernels(torch, fast, lk, ate, card) -> float:
-    """K1 and K2 on the last inputs phase 11's path gave them (A = 1):
-    against their plain versions (K1 exact; K2 under phase 2's gate,
-    :func:`k2_agrees`), then timed per launch as in phase 4. Returns K2's
-    largest flow difference."""
-    det_a1 = [ate["k1_in"][shape] for shape in sorted(ate["k1_in"], reverse=True)]
-    thr = ate["fast_threshold"]
-    for img in det_a1:
-        err = float((fast.fast_score_nms(img, thr) - fast.nms3(fast.fast_score(img, thr))).abs().max())
-        print(f"K1 at the ATE report's {tuple(img.shape)}: max |kernel - plain| = {err}")
-        if err != 0.0:
-            raise AssertionError("K1 differs from its plain version on the ATE report's frame")
+def hold_kernels(torch, fast, lk, k1_in, k2_in, thr, where, card, timed=True) -> float:
+    """K1 on the images ``k1_in`` and K2 on the levels ``k2_in`` that a
+    path gave them (A = 1): against their plain versions (K1 exact; K2
+    under phase 2's gate, :func:`k2_agrees`), both free of NaN, then (with
+    ``timed``) per launch as in phase 4. Returns K2's largest flow
+    difference."""
+    for img in k1_in:
+        got = fast.fast_score_nms(img, thr)
+        err = float((got - fast.nms3(fast.fast_score(img, thr))).abs().max())
+        print(f"K1 at {where} {tuple(img.shape)}: max |kernel - plain| = {err}, corners "
+              f"{int((got > 0).sum())}")
+        if err != 0.0 or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"K1 differs from its plain version at {where}")
     k2_err = 0.0
-    for args in ate["k2_in"]:
+    for args in k2_in:
         f_k, ok_k = lk.track_level(*args)
         f_p, ok_p = lk._track_level(*args)
         stt = lk.level_agreement(f_p, ok_p, f_k, ok_k, lk.gate_margin(*args[2:5], args[6], args[8]))
-        print(f"K2 at the ATE report's level {tuple(args[0].shape)}, {args[4].shape[1]} points: "
+        print(f"K2 at {where} level {tuple(args[0].shape)}, {args[4].shape[1]} points: "
               f"{json.dumps(stt)}")
-        if not k2_agrees(stt):
-            raise AssertionError("K2 differs from its plain version on the ATE report's frame")
+        if stt["n_both_ok"] == 0 and stt["ok_agree"] == 1.0:
+            pass  # nothing to track (a black frame): the flags agree, no flow to compare
+        elif not k2_agrees(stt):
+            raise AssertionError(f"K2 differs from its plain version at {where}")
+        if not bool(torch.isfinite(f_k[ok_k]).all()):
+            raise AssertionError(f"K2 gave a non-finite flow at {where}")
         k2_err = max(k2_err, stt["max_flow_err"])
-    a1 = kernel_times(torch, fast, lk, det_a1, ate["k2_in"], thr)
-    for name, r in a1.items():
-        print(f"time {name} per launch at the ATE report's shapes ({[tuple(x.shape) for x in det_a1]} "
-              f"for K1, {[tuple(a[4].shape) for a in ate['k2_in']]} points for K2): device "
-              f"{r['device_ms']:.4f} ms (profiler), events {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}), share of "
-              f"bound {r['share_of_bound']:.3f} ({card})")
+    if timed:  # a profiler that keeps no event leaves the device time not measured here
+        for name, r in kernel_times(torch, fast, lk, k1_in, k2_in, thr, strict=False).items():
+            dev = "not measured" if r["device_ms"] is None else f"{r['device_ms']:.4f} ms"
+            share = "not measured" if r["share_of_bound"] is None else f"{r['share_of_bound']:.3f}"
+            print(f"time {name} per launch at {where} ({[tuple(x.shape) for x in k1_in]} "
+                  f"for K1, {[tuple(a[4].shape) for a in k2_in]} points for K2): device "
+                  f"{dev} (profiler), events {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                  f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}), share of bound {share} ({card})")
     return k2_err
+
+
+def ate_kernels(torch, fast, lk, ate, card) -> float:
+    """K1 and K2 on the last inputs phase 11's path gave them (A = 1)
+    (:func:`hold_kernels`)."""
+    det_a1 = [ate["k1_in"][shape] for shape in sorted(ate["k1_in"], reverse=True)]
+    return hold_kernels(torch, fast, lk, det_a1, ate["k2_in"], ate["fast_threshold"],
+                        "the ATE report's", card)
+
+
+class _KernelInputs:
+    """Keeps the inputs K1 and K2 were launched on, per frame of the facade
+    being fed (``frame``): K1's last images per shape, K2's last three
+    levels, and both for the frame ``keep``."""
+
+    def __init__(self, fast, lk, keep):
+        self.fast, self.lk, self.keep = fast, lk, keep
+        self.dispatch = fast.fast_score_nms, lk.track_level
+        self.frame, self.k1, self.k2, self.k1_keep, self.k2_keep = None, {}, [], {}, []
+
+    def __enter__(self):
+        fast_dispatch, lk_dispatch = self.dispatch
+
+        def watch_fast(imgs, *a, **kw):
+            self.k1[tuple(imgs.shape)] = imgs
+            if self.frame == self.keep:
+                self.k1_keep[tuple(imgs.shape)] = imgs
+            return fast_dispatch(imgs, *a, **kw)
+
+        def watch_lk(*a):
+            self.k2 = (self.k2 + [a])[-3:]
+            if self.frame == self.keep:
+                self.k2_keep.append(a)
+            return lk_dispatch(*a)
+
+        self.fast.fast_score_nms, self.lk.track_level = watch_fast, watch_lk
+        return self
+
+    def __exit__(self, *exc):
+        self.fast.fast_score_nms, self.lk.track_level = self.dispatch
+
+    def watching(self, v):
+        """Facade ``v`` with its frame index kept here."""
+        inner = v.process_image_measurement
+
+        def process_image_measurement(t, seq, img, *a, **kw):
+            self.frame = seq
+            return inner(t, seq, img, *a, **kw)
+
+        v.process_image_measurement = process_image_measurement
+        return v
+
+
+def run_studies(torch, dev, h=H, w=W) -> dict:
+    """Phase 12: the ATE-report studies at 480x640 in a fresh dataset
+    directory: harsh recovery (preset harsh, the cheap IMU, the camera
+    black over ``STUDY_OUTAGE``) with the monitor off and on, the
+    photometric ablation's three modes, the gate bisect, all at ``h`` x
+    ``w``; the kernels' inputs of the harsh pass with the monitor on (its
+    last frame, and the black frame ``STUDY_BLACK_FRAME``). Returns the
+    record."""
+    import shutil
+    import tempfile
+
+    from x_multi_agent_torch.utils import ate_report as ar
+    from x_multi_agent_torch.utils import debug_collab_gates, harsh_recovery, photometric_ablation
+    from x_multi_agent_torch.vision import fast, lk
+
+    t0 = time.perf_counter()
+    rec = {"harsh": {}}
+    root, tmp = ar.DATASET_ROOT, tempfile.mkdtemp(prefix="smoke_studies_")
+    ar.DATASET_ROOT = tmp
+    build = ar.build_agent
+    try:
+        meta = harsh_recovery.ensure_harsh_dataset(0, STUDY_DURATION, "harsh", cheap_imu=True,
+                                                   h=h, w=w, device=dev)
+        n_frames = int(STUDY_DURATION * 10)
+        for health in (False, True):
+            with _KernelInputs(fast, lk, STUDY_BLACK_FRAME) as k_in:
+                ar.build_agent = lambda *a, **kw: k_in.watching(build(*a, **kw))
+                try:
+                    t1 = time.perf_counter()
+                    rec["harsh"][health] = harsh_recovery.run(
+                        meta, 0, health, n_frames, cheap_imu=True, outage=STUDY_OUTAGE, device=dev)
+                    rec["harsh"][health]["seconds"] = time.perf_counter() - t1
+                finally:
+                    ar.build_agent = build
+            rec["k_in"] = k_in
+        rec["fast_threshold"] = ar.filter_config(meta, True)["fast_threshold"]
+        t1 = time.perf_counter()
+        rec["ablation"] = photometric_ablation.main(
+            ["--duration", str(STUDY_ABLATION_DURATION),
+             "--frames", str(int(STUDY_ABLATION_DURATION * 10))], h=h, w=w, device=dev)
+        rec["ablation_seconds"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        rec["gates"] = debug_collab_gates.run(STUDY_GATE_FRAMES, "random", STUDY_DURATION, h, w,
+                                              device=dev, kf_probe=False)
+        rec["gates_seconds"] = time.perf_counter() - t1
+    finally:
+        ar.DATASET_ROOT = root
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.synchronize()
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def check_studies(st, launches, card) -> None:
+    """Phase 12's prints and asserts on the record of :func:`run_studies`
+    and the K1/K2 launches read around it."""
+    import math
+
+    from x_multi_agent_torch.utils.harsh_recovery import gates
+
+    off, on = st["harsh"][False], st["harsh"][True]
+    print(f"studies, harsh recovery ({STUDY_DURATION:.0f} s, the cheap IMU, the camera black over "
+          f"frames {STUDY_OUTAGE[0]}-{STUDY_OUTAGE[1] - 1}): monitor off {json.dumps(off)}; "
+          f"monitor on {json.dumps(on)}; gates {json.dumps(gates(on, off))} ({card})")
+    ab = st["ablation"]
+    print(f"studies, photometric ablation ({STUDY_ABLATION_DURATION:.0f} s, vignette 0.30): "
+          f"{json.dumps({m: ab[m] for m in ('off', 'global', 'spatial')})}; verdict "
+          f"{json.dumps(ab['verdict'])}; {st['ablation_seconds']:.2f} s ({card})")
+    g = st["gates"]
+    print(f"studies, gate bisect ({STUDY_GATE_FRAMES} frames, --vocab random): own valid "
+          f"{g['own_valid']}, peer valid {g['peer_valid']}, kNN {g['n_knn']}, n_applied per variant "
+          f"{json.dumps(g['variants'])}, keyframes in B {g['keyframes_b']}, hit {g['hit']}, fused "
+          f"via the served keyframe {g['rr_fused']}; {st['gates_seconds']:.2f} s ({card})")
+    print(f"studies: launches K1 {launches['fast']} K2 {launches['lk']}; phase 12: "
+          f"{st['seconds']:.2f} s wall (budget {STUDY_BUDGET_S:.0f} s) ({card})")
+    if off["n_reinits"] != 0 or on["n_reinits"] < 1:
+        raise AssertionError(f"harsh recovery: re-inits {off['n_reinits']} (monitor off), "
+                             f"{on['n_reinits']} (monitor on)")
+    if not math.isfinite(on["ate"]):  # the RMS of the errors: finite iff every position is
+        raise AssertionError(f"harsh recovery: a position is not finite with the monitor on: {on}")
+    if not all(math.isfinite(ab[m]["ate"]) for m in ("off", "global", "spatial")):
+        raise AssertionError(f"photometric ablation: a position is not finite: {ab}")
+    if g["n_knn"] < 1:
+        raise AssertionError(f"gate bisect: no kNN match: {g}")
+    for name, c in g["cov"].items():
+        if not (c["finite"] and c["max_asym"] <= 1e-6 * c["max_abs"] and c["min_pos_eig"] > 0):
+            raise AssertionError(f"gate bisect: covariance after variant {name}: {c}")
+    if launches["fast"] < 1 or launches["lk"] < 3 * int(STUDY_DURATION * 10):
+        raise AssertionError(f"studies missed a kernel: {launches}")
+    if st["seconds"] > STUDY_BUDGET_S:  # reported, not failed: the shared host sets the pace
+        for out in (sys.stdout, sys.stderr):
+            print(f"studies: OVER their {STUDY_BUDGET_S:.0f} s budget ({st['seconds']:.2f} s): "
+                  "shorten STUDY_DURATION or STUDY_GATE_FRAMES", file=out)
+
+
+def study_kernels(torch, fast, lk, st, card) -> float:
+    """K1 and K2 on the harsh pass's last frame (timed) and its black frame,
+    against their plain versions, and on an all-zero frame: K1's map all
+    zero, K2's ``ok`` all false. Returns K2's largest flow difference."""
+    k_in, thr = st["k_in"], st["fast_threshold"]
+    last = [k_in.k1[s] for s in sorted(k_in.k1, reverse=True)]
+    err = hold_kernels(torch, fast, lk, last, k_in.k2, thr, "the harsh pass's last frame", card)
+    black = [k_in.k1_keep[s] for s in sorted(k_in.k1_keep, reverse=True)]
+    print(f"the harsh pass's black frame {STUDY_BLACK_FRAME}: K1 on {len(black)} images, K2 on "
+          f"{len(k_in.k2_keep)} levels; largest corrected pixel "
+          f"{max([float(x.abs().max()) for x in black] or [0.0])}")
+    if len(k_in.k2_keep) < 3:
+        raise AssertionError("K2 was not launched on the black frame")
+    err = max(err, hold_kernels(torch, fast, lk, black, k_in.k2_keep, thr,
+                                f"the black frame {STUDY_BLACK_FRAME}", card, timed=False))
+    zero = torch.zeros((1, H, W), device="cuda")
+    score = fast.fast_score_nms(zero, thr)
+    args = k_in.k2[-1]
+    z_args = (torch.zeros_like(args[0]), torch.zeros_like(args[1]), torch.zeros_like(args[2]),
+              torch.zeros_like(args[3]), *args[4:])
+    flow, ok = lk.track_level(*z_args)
+    torch.cuda.synchronize()
+    print(f"all-zero frame: K1 max score {float(score.abs().max())}, K2 ok {int(ok.sum())} of "
+          f"{ok.numel()}, flows finite {bool(torch.isfinite(flow).all())}")
+    if float(score.abs().max()) != 0.0 or bool(ok.any()) or not bool(torch.isfinite(flow).all()):
+        raise AssertionError("K1 or K2 found texture, or K2 a non-finite flow, in an all-zero frame")
+    return err
 
 
 def main() -> int:
@@ -1392,6 +1600,16 @@ def main() -> int:
     _no_jax()
     records["lk"]["max_abs_err"] = max(records["lk"]["max_abs_err"],
                                        ate_kernels(torch, fast, lk, ate, card))
+    _no_jax()
+
+    # ---- 12. the ATE-report studies ---------------------------------------------
+    counts.start()
+    st = run_studies(torch, dev)
+    launches = counts.read()
+    check_studies(st, launches, card)
+    _no_jax()
+    records["lk"]["max_abs_err"] = max(records["lk"]["max_abs_err"],
+                                       study_kernels(torch, fast, lk, st, card))
     _no_jax()
 
     kernels = []

@@ -12,26 +12,24 @@ indices (``torch_helpers.jax_frame_indices`` on the port's own tracker state
 and corrected image), the photometric draws (``jax_photo_sampler``) and the
 collaboration gates' (``jax_keyed_sampler``); after each frame its
 photometric gains, held to the reference's to 1e-12, take the reference's
-bits (:func:`_snap_gains`: an ulp there flips FAST's rounding ties).
+bits (``torch_helpers.snap_gains``: an ulp there flips FAST's rounding
+ties).
 Positions, NEES and the output floats are held to 1e-6; hits, fused matches,
 re-inits, bytes, track and match counts exactly.
 """
 import contextlib
-import importlib.util
 import os
 import subprocess
 import sys
 from pathlib import Path
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from torch_helpers import (CPU, jax_frame_indices, jax_keyed_sampler, jax_photo_sampler,
-                           port_params, t)
-from x_multi_agent_torch.photometric import calib as tcalib
+from torch_helpers import (CPU, float64, port_params, recording, reference_script,
+                           with_reference_draws)
 from x_multi_agent_torch.parallel import collab as tcollab
 from x_multi_agent_torch.utils import ate_report as tar
 from x_multi_agent_torch.utils import tree
@@ -39,7 +37,6 @@ from x_multi_agent_torch.vio import vio as tvio
 from x_multi_agent_tpu.parallel import collab as jcollab
 from x_multi_agent_tpu.utils import scene as jscene
 from x_multi_agent_tpu.vio import vio as jvio
-from x_multi_agent_tpu.vision import tracker as jtrk
 
 REPO = Path(__file__).resolve().parents[1]
 N_AGENTS, H, W, DURATION, DEGRADED, EVERY = 2, 120, 160, 2.5, 1, 5
@@ -48,94 +45,7 @@ FLOATS = ("ate", "ate_aligned", "final_err", "mean_nees", "max_nees")
 INTS = ("rr_fused", "n_reinits", "n_hits", "bytes_rr", "bytes_full")
 
 
-def _reference():
-    """``scripts/ate_report.py`` as a module (it is a script, not a package
-    member); its periodic stack dump is switched off again."""
-    import faulthandler
-
-    spec = importlib.util.spec_from_file_location("ate_report_reference",
-                                                  REPO / "scripts" / "ate_report.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    faulthandler.cancel_dump_traceback_later()
-    return mod
-
-
-ar = _reference()
-
-
-def _float64(cls):
-    def make(*args, **kwargs):
-        return cls(*args, **kwargs)._replace(dtype="float64")
-
-    return make
-
-
-def _jax_tracker_state(st):
-    return jtrk.TrackerState(**{k: jnp.asarray(getattr(st, k).numpy())
-                                for k in jtrk.TrackerState.__dataclass_fields__})
-
-
-def _snap_gains(v, ref) -> float:
-    """Hold the port's photometric gains to the reference's ``ref`` state
-    (its ``PhotoState`` after the same frame) to 1e-12, then take the
-    reference's bits. The next frame's corrected image is affine in the
-    integer raw values, so FAST scores that are equal in exact arithmetic
-    differ by rounding only, and an ulp between the two packages' gains
-    (their reductions run in another order) would rank or suppress such
-    candidates the other way: the same bits make the detections the same.
-    Returns the largest difference taken away."""
-    import dataclasses
-
-    st = v.photo.state
-    rp = torch.from_numpy(np.array(ref.params_pt))
-    assert int(st.frame_ptr) == int(ref.frame_ptr) and int(st.n_frames) == int(ref.n_frames)
-    err = float((st.params_pt - rp).abs().max())
-    assert err <= 1e-12, err
-    v.photo = dataclasses.replace(v.photo, state=dataclasses.replace(st, params_pt=rp))
-    return err
-
-
-def _with_reference_draws(v, ref_states, snapped):
-    """The port's facade ``v`` drawing what the reference draws: RANSAC
-    indices from the reference's draw on the port's tracker state and the
-    corrected image the tracker is about to see, the reference's keyed
-    photometric and collaboration draws; after each frame its gains are
-    held to the reference's (``ref_states``: frame -> the reference's
-    photometric state) and take their bits (:func:`_snap_gains`; the
-    differences go to ``snapped``)."""
-    v.photo_sampler = jax_photo_sampler()
-    if getattr(v, "_db", None) is not None:
-        v.sampler = jax_keyed_sampler()
-    jp = jtrk.TrackerParams(**v._tracker_params._asdict())
-    inner = v.process_image_measurement
-
-    def process_image_measurement(t_cam, seq, img, ransac_idx=None):
-        raw = torch.as_tensor(img, dtype=v.params.tdtype, device=v.device)
-        a, b = v.photo.state.current().unbind(-1)
-        cor = tcalib.correct_image(raw, a, b, params_ps=v.photo.ps).to(v.params.tdtype)
-        idx = jax_frame_indices(jp, _jax_tracker_state(v._tracker_state),
-                                    jnp.asarray(cor.numpy())[None])
-        applied = inner(t_cam, seq, img, ransac_idx=t(np.asarray(idx)))
-        snapped.append(_snap_gains(v, ref_states[seq]))
-        return applied
-
-    v.process_image_measurement = process_image_measurement
-    return v
-
-
-def _recording(v, states):
-    """The reference's facade ``v``, keeping its photometric state after
-    each frame in ``states`` (frame -> state)."""
-    inner = v.process_image_measurement
-
-    def process_image_measurement(t_cam, seq, img):
-        applied = inner(t_cam, seq, img)
-        states[seq] = jax.tree.map(np.asarray, v._photo_state)
-        return applied
-
-    v.process_image_measurement = process_image_measurement
-    return v
+ar = reference_script("ate_report")
 
 
 _build_agent = tar.build_agent
@@ -162,21 +72,21 @@ def _replays(root, n_agents, duration, every):
     ref_states, snapped = {}, []
 
     def jax_agent(meta, degraded, words, ccfg, uav_id, collab, overrides=None):
-        return _recording(_jax_build_agent(meta, degraded, words, ccfg, uav_id, collab, overrides),
+        return recording(_jax_build_agent(meta, degraded, words, ccfg, uav_id, collab, overrides),
                           ref_states.setdefault((collab, uav_id), {}))
 
     def port_agent(meta, degraded, words, ccfg, uav_id, collab, overrides=None, device=None,
                    seed=0):
         v = _build_agent(meta, degraded, words, ccfg, uav_id, collab, overrides, device=CPU,
                          seed=seed)
-        return _with_reference_draws(v, ref_states[(collab, uav_id)], snapped)
+        return with_reference_draws(v, ref_states[(collab, uav_id)], snapped)
 
     mp = pytest.MonkeyPatch()
     try:
         for mod in (ar, tar):
             mp.setattr(mod, "DATASET_ROOT", root)
-        mp.setattr(jvio, "VioParams", _float64(jvio.VioParams))
-        mp.setattr(tvio, "VioParams", _float64(tvio.VioParams))
+        mp.setattr(jvio, "VioParams", float64(jvio.VioParams))
+        mp.setattr(tvio, "VioParams", float64(tvio.VioParams))
         mp.setattr(ar, "build_agent", jax_agent)
         mp.setattr(tar, "build_agent", port_agent)
         metas = tar.ensure_dataset(n_agents, duration, H, W, degraded_idx=DEGRADED, device=CPU)
@@ -456,8 +366,8 @@ def test_replay_dataset_dir_matches_reference(tmp_path, monkeypatch):
     from test_ref_ingest import _synthesize
 
     _synthesize(str(tmp_path))
-    monkeypatch.setattr(jvio, "VioParams", _float64(jvio.VioParams))
-    monkeypatch.setattr(tvio, "VioParams", _float64(tvio.VioParams))
+    monkeypatch.setattr(jvio, "VioParams", float64(jvio.VioParams))
+    monkeypatch.setattr(tvio, "VioParams", float64(tvio.VioParams))
     ref = ar.replay_dataset_dir(str(tmp_path))
     got = tar.replay_dataset_dir(str(tmp_path), device=CPU)
     assert got["applied"] == ref["applied"] and got["frames"] == ref["frames"]

@@ -5,6 +5,10 @@ leaf by leaf: JAX runs as the rest of the suite runs it (CPU, float64 under
 ``tests/conftest.py``), the port runs on CPU tensors in float64.
 """
 import dataclasses
+import faulthandler
+import importlib.util
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -14,8 +18,10 @@ import torch
 from x_multi_agent_tpu.utils import scene
 from x_multi_agent_tpu.vision import image as jimg
 from x_multi_agent_tpu.vision import lk as jlk
+from x_multi_agent_tpu.vision import tracker as jtrk
 
 from x_multi_agent_torch.ekf.propagator import ImuNoise
+from x_multi_agent_torch.photometric import calib as tcalib
 from x_multi_agent_torch.ekf.state import StateDims
 from x_multi_agent_torch.utils.convert import from_numpy, to_numpy
 from x_multi_agent_torch.vio import pipeline as tpipe
@@ -27,6 +33,7 @@ torch.set_num_threads(1)
 
 F64 = torch.float64
 CPU = torch.device("cpu")
+REPO = Path(__file__).resolve().parents[1]
 
 
 def np_tree(x):
@@ -196,3 +203,107 @@ def jax_frame_indices(jp, state, imgs):
     """Regenerate, per agent, the RANSAC indices the reference's
     track_frame_batch draws inside _track_core."""
     return np.asarray(_frame_indices_jit(jp, state, imgs))
+
+
+# ---------------------------------------------------------------------------
+# the reference's scripts, run through both packages
+# ---------------------------------------------------------------------------
+
+
+def reference_script(name: str):
+    """``scripts/{name}.py`` of the reference as a module named ``name``
+    (its scripts import one another by that name: ``import ate_report as
+    ar``), loaded once; the periodic stack dump ``ate_report`` starts is
+    switched off again."""
+    if name not in sys.modules:
+        scripts = str(REPO / "scripts")
+        if scripts not in sys.path:
+            sys.path.insert(0, scripts)
+        spec = importlib.util.spec_from_file_location(name, REPO / "scripts" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        try:
+            spec.loader.exec_module(mod)
+        except BaseException:
+            del sys.modules[name]
+            raise
+        faulthandler.cancel_dump_traceback_later()
+    return sys.modules[name]
+
+
+def float64(cls):
+    """A ``VioParams`` class that builds its parameters in float64 (patched
+    over a package's class, so a script's facades run in float64)."""
+    def make(*args, **kwargs):
+        return cls(*args, **kwargs)._replace(dtype="float64")
+
+    return make
+
+
+def _jax_tracker_state(st):
+    return jtrk.TrackerState(**{k: jnp.asarray(getattr(st, k).numpy())
+                                for k in jtrk.TrackerState.__dataclass_fields__})
+
+
+def snap_gains(v, ref) -> float:
+    """Hold the port's photometric gains to the reference's ``ref`` state
+    (its ``PhotoState`` after the same frame) to 1e-12, then take the
+    reference's bits. The next frame's corrected image is affine in the
+    integer raw values, so FAST scores that are equal in exact arithmetic
+    differ by rounding only, and an ulp between the two packages' gains
+    (their reductions run in another order) would rank or suppress such
+    candidates the other way: the same bits make the detections the same.
+    Returns the largest difference taken away."""
+    st = v.photo.state
+    rp = torch.from_numpy(np.array(ref.params_pt))
+    assert int(st.frame_ptr) == int(ref.frame_ptr) and int(st.n_frames) == int(ref.n_frames)
+    err = float((st.params_pt - rp).abs().max())
+    assert err <= 1e-12, err
+    v.photo = dataclasses.replace(v.photo, state=dataclasses.replace(st, params_pt=rp))
+    return err
+
+
+def with_reference_draws(v, ref_states, snapped):
+    """The port's facade ``v`` drawing what the reference draws: RANSAC
+    indices from the reference's draw on the port's tracker state and the
+    image the tracker is about to see (corrected when the photometric
+    calibration is on), the reference's keyed photometric and collaboration
+    draws; after each frame its gains are held to the reference's
+    (``ref_states``: frame -> the reference's photometric state) and take
+    their bits (:func:`snap_gains`; the differences go to ``snapped``)."""
+    if v.photo is not None:
+        v.photo_sampler = jax_photo_sampler()
+    if getattr(v, "_db", None) is not None:
+        v.sampler = jax_keyed_sampler()
+    jp = jtrk.TrackerParams(**v._tracker_params._asdict())
+    inner = v.process_image_measurement
+
+    def process_image_measurement(t_cam, seq, img, ransac_idx=None):
+        cor = torch.as_tensor(img, dtype=v.params.tdtype, device=v.device)
+        if v.photo is not None:
+            a, b = v.photo.state.current().unbind(-1)
+            cor = tcalib.correct_image(cor, a, b, params_ps=v.photo.ps).to(v.params.tdtype)
+        idx = jax_frame_indices(jp, _jax_tracker_state(v._tracker_state),
+                                jnp.asarray(cor.numpy())[None])
+        applied = inner(t_cam, seq, img, ransac_idx=t(np.asarray(idx)))
+        if v.photo is not None:
+            snapped.append(snap_gains(v, ref_states[seq]))
+        return applied
+
+    v.process_image_measurement = process_image_measurement
+    return v
+
+
+def recording(v, states):
+    """The reference's facade ``v``, keeping its photometric state after
+    each frame in ``states`` (frame -> state)."""
+    inner = v.process_image_measurement
+
+    def process_image_measurement(t_cam, seq, img):
+        applied = inner(t_cam, seq, img)
+        if getattr(v, "_photo_state", None) is not None:
+            states[seq] = jax.tree.map(np.asarray, v._photo_state)
+        return applied
+
+    v.process_image_measurement = process_image_measurement
+    return v

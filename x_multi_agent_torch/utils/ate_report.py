@@ -104,6 +104,43 @@ def ensure_dataset(n_agents: int, duration: float, h: int, w: int, degraded_idx:
     return metas
 
 
+def ensure_variant_dataset(agent: int, tag: str, duration: float, thermal, motion,
+                           imu_w_factor: float = 1.0, imu_a_factor: float = 1.0, *, gen_key,
+                           h: int = 480, w: int = 640, device=None):
+    """A variant of agent ``agent``'s dataset under :data:`DATASET_ROOT`
+    (``agent{agent}_{tag}``), as the studies render theirs: the same orbit
+    (seed 100 + agent, phase 0.15 agent) and walls as :func:`ensure_dataset`,
+    with its own ``thermal`` degradation (``None``: none), ``motion``
+    amplitudes and IMU noise factors. Rendered on ``device`` unless a
+    ``meta.json`` with the same ``gen_key`` is there, whichever package
+    wrote it. Returns the meta with the camera times and positions read
+    from ``gt.csv``."""
+    from . import scene
+
+    adir = os.path.join(DATASET_ROOT, f"agent{agent}_{tag}")
+    meta_p = os.path.join(adir, "meta.json")
+    meta = None
+    if os.path.exists(meta_p):
+        with open(meta_p) as f:
+            meta = json.load(f)
+    if meta is None or meta.get("gen_key") != gen_key:
+        print(f"generating the {tag} dataset of agent {agent} ({duration:.0f}s)...", flush=True)
+        info = scene.generate_agent_dataset_6dof(
+            adir, seed=100 + agent, duration=duration, h=h, w=w, phase=0.15 * agent,
+            tex=scene.make_texture(0, device=device), wall2_x=4.0, thermal=thermal,
+            z_amp=motion["z_amp"], yaw_amp=motion["yaw_amp"], pitch_amp=motion["pitch_amp"],
+            roll_amp=motion["roll_amp"], imu_noise_w=2e-4 * imu_w_factor,
+            imu_noise_a=2e-3 * imu_a_factor, device=device,
+        )
+        meta = dict(duration=duration, h=h, w=w, fx=info["fx"], fy=info["fy"],
+                    v0=list(map(float, info["v0"])), p0=list(map(float, info["p0"])),
+                    q0=list(map(float, info["q0"])), gen_key=gen_key)
+        with open(meta_p, "w") as f:
+            json.dump(meta, f)
+    gt = np.loadtxt(os.path.join(adir, "gt.csv"), delimiter=",", comments="#")
+    return dict(meta, cam_t=gt[:, 0], cam_p=gt[:, 1:4], dir=adir)
+
+
 def filter_config(meta, degraded: bool, agent_idx: int = 0, overrides=None):
     """The full agent configuration (also the solo-cache key material)."""
     fc = _filter_config_base(meta, degraded, agent_idx)
@@ -138,11 +175,12 @@ def _filter_config_base(meta, degraded: bool, agent_idx: int = 0):
 
 
 def build_agent(meta, degraded: bool, words, ccfg, uav_id: int, collab: bool, overrides=None,
-                device=None, seed: int = 0):
+                device=None, seed: int = 0, dtype: str = "float32"):
     """One agent's facade: the filter, the tracker with descriptors, the
     photometric calibration, the health monitor and, with ``collab``, the
     collaboration with vocabulary ``words`` and ``ccfg``. ``seed`` is the
-    base of every RANSAC draw the facade keys on its state."""
+    base of every RANSAC draw the facade keys on its state; ``dtype`` the
+    filter's (the reference's is float32)."""
     from ..ekf.propagator import ImuNoise
     from ..ekf.state import StateDims
     from ..vio import pipeline, track_manager as tm, vio as vio_mod
@@ -164,7 +202,7 @@ def build_agent(meta, degraded: bool, words, ccfg, uav_id: int, collab: bool, ov
     s = fc["imu_noise_scale"]
     noise = ImuNoise(n_w=0.0083 * s, n_bw=0.00083 * s, n_a=0.0013 * s, n_ba=0.00013 * s)
     params = vio_mod.VioParams(
-        cfg=cfg, dtype="float32", max_update_lag=fc["max_update_lag"], imu_noise=noise,
+        cfg=cfg, dtype=dtype, max_update_lag=fc["max_update_lag"], imu_noise=noise,
         sigma_dp=(fc["sigma_dp"],) * 3, sigma_dv=(0.05,) * 3, sigma_dtheta_deg=(1.0,) * 3,
         sigma_dbw_deg=(1.0,) * 3, sigma_dba=(0.05,) * 3,
     )
@@ -199,7 +237,9 @@ def build_agent(meta, degraded: bool, words, ccfg, uav_id: int, collab: bool, ov
 def _aligned_ate(est: np.ndarray, gt: np.ndarray) -> float:
     """SE(3)-aligned ATE RMSE (Umeyama, no scale): global position and yaw
     are gauge-unobservable, so the raw error of a long run is mostly frame
-    drift."""
+    drift. NaN when an estimate is not finite (a diverged run)."""
+    if not np.isfinite(est).all():
+        return float("nan")
     mu_e = est.mean(axis=0)
     mu_g = gt.mean(axis=0)
     ec = est - mu_e
@@ -552,6 +592,9 @@ def make_words(vocab: str, device=None) -> torch.Tensor:
     from ..place_recognition.vocabulary import load_dbow3, train_kmajority
 
     if vocab == "thermal":
+        if not os.path.exists(THERMAL_VOCAB):
+            raise FileNotFoundError(f"the thermal DBoW3 vocabulary {THERMAL_VOCAB} is not in the "
+                                    "repository; use the random vocabulary (--vocab random)")
         words = load_dbow3(THERMAL_VOCAB).words
     else:
         rng = np.random.default_rng(0)
