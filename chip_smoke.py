@@ -24,11 +24,14 @@ Phases (any failure raises, so the exit code is non-zero):
      finite covariance), both kernels launched on this path, no JAX
      imported;
   4. K1 on one detection frame's two levels and K2 on one frame's three
-     levels, per launch: the CUDA-event time, the device time from a
-     ``torch.profiler`` trace of the same calls (summed over the kernel's
-     own symbol), the plain version's time and the bound (the larger of the
-     bytes over 3.35 TB/s and the operations over the fp32 peak, counted
-     for these inputs: see ``k1_work`` and ``k2_work``);
+     levels, per launch: the device time from a CUDA graph of 20 launches
+     replayed between two CUDA events (``graph_ms``; fails unless the
+     capture launched the kernel), the CUDA-event time of the calls (host
+     enqueue included), the device time from a ``torch.profiler`` trace of
+     the same calls (summed over the kernel's own symbol; "not measured"
+     when the tracer kept no event), the plain version's time and the bound
+     (the larger of the bytes over 3.35 TB/s and the operations over the
+     fp32 peak, counted for these inputs: see ``k1_work`` and ``k2_work``);
   5. collaboration: a fresh fleet of the same 16 agents from their
      initial states through ``frame_step`` for 10 frames, with a full-map
      exchange round (``collab.collaborative_round``, the reference's
@@ -129,16 +132,29 @@ Phases (any failure raises, so the exit code is non-zero):
      harsh pass's last frame (timed as in phase 4) and on its black frame
      20 against their plain versions under phases 1 and 2's gates, and on
      an all-zero frame (no corner, no ``ok``, finite flows). The phase's
-     wall time is printed against its 120 s budget.
+     wall time is printed against its 120 s budget;
+ 13. the benchmark programs (``utils/bench.py``, the reference's
+     ``bench.py``) at the reference's sizes: ``bench_matches`` at 512 and at
+     128 agents (20 warm-up, then 20 timed steps), ``bench_batch1_latency``
+     (100 + 100), ``bench_image`` at 64 agents on 480x640 frames (20 + 20),
+     each with the reference's asserts (>= 95 % applied in the last step,
+     SLAM features, tail within 1 m, finite covariance; >= 10 live features
+     per agent, fps < 50 000); updates/s per chip and per agent, ms per
+     step, frames/s, and from a ``torch.profiler`` trace of 3 warm-up steps
+     the host's launch calls, device-busy ms and idle share per step; K1 and
+     K2 launched by the image bench and by no match-driven program; then K1
+     and K2 on the image bench's last detection frame and last LK levels (A
+     = 64) against their plain versions under phases 1 and 2's gates and
+     timed as in phase 4. The phase's wall time is printed against its 240
+     s budget.
 
 The last three lines of standard output are the kernels' JSON record (the
-launch counts summed over the paths of phases 3, 5-9, 10's ranks, 11 and 12,
-each read from 0 around its path; phase 4's times per launch), the card's
-``nvidia-smi`` name and power limit, and the result JSON.
+launch counts summed over the paths of phases 3, 5-9, 10's ranks, 11, 12
+and 13, each read from 0 around its path; phase 4's times per launch), the
+card's ``nvidia-smi`` name and power limit, and the result JSON.
 """
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -155,6 +171,10 @@ ATE_DURATION, ATE_BUDGET_S = 3.0, 180.0  # phase 11: 30 frames per pass; its wal
 # bisect's frames (of a dataset of STUDY_DURATION); the phase's wall budget
 STUDY_DURATION, STUDY_OUTAGE, STUDY_BLACK_FRAME = 6.0, (15, 40), 20
 STUDY_ABLATION_DURATION, STUDY_GATE_FRAMES, STUDY_BUDGET_S = 3.0, 30, 120.0
+# phase 13: the benchmark programs' agent counts, windows (warm-up = timed),
+# traced warm-up steps, and the phase's wall budget
+BENCH_AGENTS, BENCH_POINT, BENCH_STEPS, BENCH_B1_STEPS = 512, 128, 20, 100
+BENCH_IMG_AGENTS, BENCH_IMG_STEPS, BENCH_TRACED, BENCH_BUDGET_S = 64, 20, 3, 240.0
 # phase 9: the reference's thermal e2e drift, the accuracy report's vignette
 # and noise, its calibration budget; spatial cells and cadence
 THERMAL_GAINS = [(1.0 + 0.01 * k, 0.002 * k) for k in range(N_FACADE)]
@@ -164,14 +184,6 @@ CELL_PX, SPATIAL_EVERY = 40, 10
 # flop/s outside the tensor cores (an FMA counts 2), and fp32 instructions/s
 # that are not FMAs (min, max, compare, add: one per lane per clock)
 PEAK_BYTES, PEAK_FLOPS, PEAK_OPS = 3.35e12, 67e12, 33.5e12
-
-
-def _card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def _no_jax() -> None:
@@ -206,24 +218,17 @@ def _timed(torch, fn):
     return out, start.elapsed_time(end)
 
 
-def _device_us(event) -> float:
-    """Device time of one profiler event (the attribute was renamed across
-    torch versions)."""
-    for attr in ("device_time", "cuda_time", "self_device_time_total"):
-        if hasattr(event, attr):
-            return float(getattr(event, attr))
-    raise AttributeError("profiler event has no device time")
-
-
-def device_ms(torch, fn, symbol: str, reps: int = 20, tries: int = 5, strict: bool = True):
+def profiler_ms(torch, fn, symbol: str, reps: int = 20, tries: int = 5):
     """Mean device milliseconds of the kernel whose name holds ``symbol``,
     from a ``torch.profiler`` trace of ``reps`` calls of ``fn`` (after a
     warm-up call), each launching it once. The tracer sometimes drops
     events (11 of 40 kept once, none of 20 in three traces once): the mean
     is over the launches it kept, the trace is taken again while it kept
-    fewer than half, and when it keeps none it fails (``strict``) or
-    returns None (not measured)."""
+    fewer than half, and when it keeps none it returns None (not
+    measured)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from x_multi_agent_torch.utils.bench import device_us
 
     fn()
     torch.cuda.synchronize()
@@ -237,10 +242,34 @@ def device_ms(torch, fn, symbol: str, reps: int = 20, tries: int = 5, strict: bo
         if 2 * len(evs) >= reps:
             break
     if not evs:
-        if strict:
-            raise AssertionError(f"the profiler saw no launch of {symbol}")
         return None
-    return sum(_device_us(e) for e in evs) / 1e3 / len(evs)
+    return sum(device_us(e) for e in evs) / 1e3 / len(evs)
+
+
+def graph_ms(torch, fn, kernel, reps: int = 20, replays: int = 10) -> float:
+    """Device milliseconds per launch of ``fn``, which launches ``kernel``
+    once per call: ``reps`` calls captured in one CUDA graph (the wrappers
+    launch on the current stream), the graph replayed ``replays`` times
+    between two CUDA events, so no host work sits between the launches (the
+    gaps between the graph's nodes are included). Fails unless the capture
+    launched ``kernel`` ``reps`` times (its wrapper's counter)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up outside the default stream, as capture wants
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    n0 = kernel.launches
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    if kernel.launches - n0 != reps:
+        raise AssertionError(f"{kernel.name}: {kernel.launches - n0} launches captured, not {reps}")
+    graph.replay()
+    _, ms = _timed(torch, lambda: [graph.replay() for _ in range(replays)])
+    if not ms > 0:
+        raise AssertionError(f"{kernel.name}: no graph time ({ms} ms)")
+    return ms / (reps * replays)
 
 
 def k1_work(torch, fast, imgs, thr):
@@ -298,38 +327,49 @@ def k2_agrees(stt) -> bool:
             and stt["n_both_ok"] > 0)
 
 
-def kernel_times(torch, fast, lk, det_levels, level_inputs, thr, strict: bool = True) -> dict:
+def kernel_times(torch, fast, lk, det_levels, level_inputs, thr) -> dict:
     """K1 on one detection frame's levels and K2 on one frame's LK levels,
-    per launch (means over the frame's launches): CUDA-event ms, profiler
-    device ms (each level traced on its own; None where the profiler kept
-    no event and not ``strict``), the plain version's ms, the bound and
-    what bounds it."""
+    per launch (means over the frame's launches): device ms from a CUDA
+    graph of each launch site (:func:`graph_ms`), CUDA-event ms of the
+    calls, profiler device ms (each level traced on its own; None where the
+    profiler kept no event), the plain version's ms, the bound and what
+    bounds it."""
     calls = {
-        "fast": ("fast_score_nms_kernel",
+        "fast": (fast.K1, "fast_score_nms_kernel",
                  [lambda i=i: fast.fast_score_nms(i, thr) for i in det_levels],
                  lambda: [fast.nms3(fast.fast_score(i, thr)) for i in det_levels],
                  [k1_work(torch, fast, i, thr) for i in det_levels], PEAK_OPS),
-        "lk": ("lk_level_kernel",
+        "lk": (lk.K2, "lk_level_kernel",
                [lambda a=a: lk.track_level(*a) for a in level_inputs],
                lambda: [lk._track_level(*a) for a in level_inputs],
                [k2_work(torch, lk, a) for a in level_inputs], PEAK_FLOPS),
     }
     out = {}
-    for name, (symbol, launches, plain, work, peak) in calls.items():
+    for name, (kernel, symbol, launches, plain, work, peak) in calls.items():
         n = len(work)
         t_bytes = sum(b for b, _ in work) / PEAK_BYTES * 1e3
         t_ops = sum(o for _, o in work) / peak * 1e3
         bound = sum(max(b / PEAK_BYTES, o / peak) for b, o in work) * 1e3 / n
-        dev = [device_ms(torch, f, symbol, strict=strict) for f in launches]
-        r = {"ms": _ms(torch, lambda: [f() for f in launches]) / n,
-             "device_ms": None if None in dev else sum(dev) / n,
+        prof = [profiler_ms(torch, f, symbol) for f in launches]
+        r = {"device_ms": sum(graph_ms(torch, f, kernel) for f in launches) / n,
+             "ms": _ms(torch, lambda: [f() for f in launches]) / n,
+             "profiler_ms": None if None in prof else sum(prof) / n,
              "plain_ms": _ms(torch, plain) / n, "bound_ms": bound,
              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
              "library_ms": None, "launches_per_frame": n,
              "bytes_per_frame": sum(b for b, _ in work), "ops_per_frame": sum(o for _, o in work)}
-        r["share_of_bound"] = r["bound_ms"] / r["device_ms"] if r["device_ms"] else None
+        r["share_of_bound"] = r["bound_ms"] / r["device_ms"]
         out[name] = r
     return out
+
+
+def _profiled(r) -> str:
+    return "not measured" if r["profiler_ms"] is None else f"{r['profiler_ms']:.4f} ms"
+
+
+def _measured(x, digits: int) -> str:
+    """A trace's number, or "not measured" where the trace dropped events."""
+    return "not measured" if x is None else f"{x:.{digits}f}"
 
 
 def kernel_inputs(torch, tparams, frame0, frame1):
@@ -582,13 +622,6 @@ def run_facade_pair(torch, params, tparams, cam, frames, imu, start, words, devi
     return vs, rec
 
 
-def _launch_calls(prof) -> int:
-    """Kernel launches of a ``torch.profiler`` trace, counted on the host
-    (the runtime's launch calls; the tracer can drop device events)."""
-    return sum(1 for e in prof.events() if e.name in ("cudaLaunchKernel", "cuLaunchKernel",
-                                                         "cudaLaunchKernelExC", "cuLaunchKernelEx"))
-
-
 def run_thermal(torch, params, tparams, cam, raw, clean, imu, start, spatial, device):
     """Degraded frames ``raw`` (n, H, W) uint8 and host IMU windows (numpy,
     (n, L, ...)) through one facade with photometric calibration
@@ -596,6 +629,7 @@ def run_thermal(torch, params, tparams, cam, raw, clean, imu, start, spatial, de
     import warnings
 
     from x_multi_agent_torch.photometric import calib
+    from x_multi_agent_torch.utils.bench import launch_calls
     from x_multi_agent_torch.vio.vio import VIO
 
     times, seqs, w_ms, a_ms = imu
@@ -676,7 +710,7 @@ def run_thermal(torch, params, tparams, cam, raw, clean, imu, start, spatial, de
             syncs.append((due, [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
                                 if "called a synchronizing" in str(w.message)]))
         torch.cuda.synchronize()
-    rec["update_launches"] = _launch_calls(prof) / 10
+    rec["update_launches"] = launch_calls(prof) / 10
     rec["syncs"] = syncs
     return v, rec
 
@@ -1040,7 +1074,7 @@ def check_ate_report(ate, launches, card) -> None:
 
 def hold_kernels(torch, fast, lk, k1_in, k2_in, thr, where, card, timed=True) -> float:
     """K1 on the images ``k1_in`` and K2 on the levels ``k2_in`` that a
-    path gave them (A = 1): against their plain versions (K1 exact; K2
+    path gave them: against their plain versions (K1 exact; K2
     under phase 2's gate, :func:`k2_agrees`), both free of NaN, then (with
     ``timed``) per launch as in phase 4. Returns K2's largest flow
     difference."""
@@ -1065,14 +1099,13 @@ def hold_kernels(torch, fast, lk, k1_in, k2_in, thr, where, card, timed=True) ->
         if not bool(torch.isfinite(f_k[ok_k]).all()):
             raise AssertionError(f"K2 gave a non-finite flow at {where}")
         k2_err = max(k2_err, stt["max_flow_err"])
-    if timed:  # a profiler that keeps no event leaves the device time not measured here
-        for name, r in kernel_times(torch, fast, lk, k1_in, k2_in, thr, strict=False).items():
-            dev = "not measured" if r["device_ms"] is None else f"{r['device_ms']:.4f} ms"
-            share = "not measured" if r["share_of_bound"] is None else f"{r['share_of_bound']:.3f}"
+    if timed:
+        for name, r in kernel_times(torch, fast, lk, k1_in, k2_in, thr).items():
             print(f"time {name} per launch at {where} ({[tuple(x.shape) for x in k1_in]} "
                   f"for K1, {[tuple(a[4].shape) for a in k2_in]} points for K2): device "
-                  f"{dev} (profiler), events {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                  f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}), share of bound {share} ({card})")
+                  f"{r['device_ms']:.4f} ms (CUDA graph), profiler {_profiled(r)}, events "
+                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+                  f"({r['bound_by']}), share of bound {r['share_of_bound']:.3f} ({card})")
     return k2_err
 
 
@@ -1251,6 +1284,86 @@ def study_kernels(torch, fast, lk, st, card) -> float:
     return err
 
 
+def run_bench(torch, params, counts, fast, lk, dev) -> dict:
+    """Phase 13: the benchmark programs of ``utils/bench.py`` at the
+    reference's sizes, each with its asserts, the last ``BENCH_TRACED``
+    warm-up steps traced, K1/K2 launches read around each; the image
+    bench's last K1 and K2 inputs kept. Returns the record."""
+    from x_multi_agent_torch.utils import bench
+
+    t0 = time.perf_counter()
+    programs = (  # (name, agents, program(stats) -> its number)
+        ("matches", BENCH_AGENTS, lambda st: bench.bench_matches(
+            params, BENCH_AGENTS, BENCH_STEPS, dev, st, BENCH_TRACED)),
+        ("matches", BENCH_POINT, lambda st: bench.bench_matches(
+            params, BENCH_POINT, BENCH_STEPS, dev, st, BENCH_TRACED)),
+        ("batch1", 1, lambda st: bench.bench_batch1_latency(
+            params, BENCH_B1_STEPS, dev, st, BENCH_TRACED)),
+        ("image", BENCH_IMG_AGENTS, lambda st: bench.bench_image(
+            params, BENCH_IMG_AGENTS, BENCH_IMG_STEPS, H, W, dev, st, BENCH_TRACED)),
+    )
+    rec = {"programs": []}
+    for name, agents, run in programs:
+        st = {"name": name, "agents": agents}
+        counts.start()
+        with _KernelInputs(fast, lk, keep=-1) as k_in:
+            st["value"] = run(st)
+        st["launches"] = counts.read()
+        rec["programs"].append(st)
+        if name == "image":
+            rec["k_in"] = k_in
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def check_bench(bn, card) -> None:
+    """Phase 13's prints and checks on the record of :func:`run_bench`
+    (each program's own asserts ran inside it): K1 and K2 launched by the
+    image bench, by no match-driven program."""
+    for st in bn["programs"]:
+        tr, a = st["trace"], st["agents"]
+        if st["name"] == "batch1":
+            what = f"{st['value']:.3f} ms per update ({1e3 / st['value']:.1f} updates/s)"
+        elif st["name"] == "matches":
+            what = (f"{st['value']:.1f} updates/s per chip, {st['value'] / a:.2f} per agent, "
+                    f"{st['ms_per_step']:.3f} ms/step")
+        else:
+            what = (f"{st['value']:.1f} agent-frames/s per chip, {st['value'] / a:.2f} per agent, "
+                    f"{st['ms_per_step']:.3f} ms/frame, live features {st['live_features']}")
+        health = {k: st[k] for k in ("applied_last", "min_slam_features", "max_tail_err_m")
+                  if k in st}
+        print(f"bench {st['name']} at {a} agents: {what}; {json.dumps(health)}; traced "
+              f"({BENCH_TRACED} warm-up steps): {tr['wall_ms']:.3f} ms/step, launch calls "
+              f"{tr['launch_calls']:.1f}/step, device busy {_measured(tr['device_busy_ms'], 3)} "
+              f"ms/step from {tr['kernel_events']:.1f} kernel events, idle share "
+              f"{_measured(st['device_idle_share'], 4)} of a timed step "
+              f"({_measured(tr['device_idle_share'], 4)} of a traced one); launches K1 "
+              f"{st['launches']['fast']} K2 {st['launches']['lk']} ({card})")
+    print(f"phase 13: {bn['seconds']:.2f} s wall (budget {BENCH_BUDGET_S:.0f} s) ({card})")
+    for st in bn["programs"]:
+        n = st["launches"]
+        if st["name"] == "image" and (n["fast"] < 1 or n["lk"] < 3 * 2 * BENCH_IMG_STEPS):
+            raise AssertionError(f"the image bench missed a kernel: {n}")
+        if st["name"] != "image" and any(n.values()):
+            raise AssertionError(f"the {st['name']} bench launched K1/K2: {n}")
+    if bn["seconds"] > BENCH_BUDGET_S:  # reported, not failed: the shared host sets the pace
+        for out in (sys.stdout, sys.stderr):
+            print(f"bench: OVER its {BENCH_BUDGET_S:.0f} s budget ({bn['seconds']:.2f} s): "
+                  "shorten BENCH_B1_STEPS or an earlier phase", file=out)
+
+
+def bench_kernels(torch, fast, lk, bn, thr, card) -> float:
+    """K1 and K2 on the image bench's last detection frame and last LK
+    levels (A = ``BENCH_IMG_AGENTS``) against their plain versions, timed
+    (:func:`hold_kernels`). Returns K2's largest flow difference."""
+    k_in = bn["k_in"]
+    det = [k_in.k1[s] for s in sorted(k_in.k1, reverse=True)]
+    if len(det) < 2 or len(k_in.k2) < 3 or det[0].shape[0] != BENCH_IMG_AGENTS:
+        raise AssertionError(f"the image bench kept no A = {BENCH_IMG_AGENTS} kernel inputs")
+    return hold_kernels(torch, fast, lk, det, k_in.k2, thr,
+                        f"the image bench (A = {BENCH_IMG_AGENTS})", card)
+
+
 def main() -> int:
     import torch
 
@@ -1265,17 +1378,18 @@ def main() -> int:
     from x_multi_agent_torch import configs, native
     from x_multi_agent_torch.ekf import ekf as ekf_mod
     from x_multi_agent_torch.parallel import collab
+    from x_multi_agent_torch.utils.bench import card_line
     from x_multi_agent_torch.utils.scene import orbit_dataset, orbit_start
     from x_multi_agent_torch.vio import vio
     from x_multi_agent_torch.vio.frame_step import frame_step
     from x_multi_agent_torch.vision import fast, lk, tracker
 
     # ---- 0. card and build -------------------------------------------------
-    card = _card_line()
+    dev = torch.device("cuda")
+    card = card_line(dev)
     print(f"card: {card}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
     t0 = time.perf_counter()
     native.lib()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {native.build_seconds} s)")
@@ -1373,10 +1487,10 @@ def main() -> int:
     for name, r in times.items():
         records[name].update(r)
         print(f"time {name} per launch (mean of {r['launches_per_frame']} per frame): device "
-              f"{r['device_ms']:.4f} ms (profiler), events {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
-              f"{r['bytes_per_frame']} bytes, {r['ops_per_frame']} operations per frame), "
-              f"share of bound {r['share_of_bound']:.3f} ({card})")
+              f"{r['device_ms']:.4f} ms (CUDA graph), profiler {_profiled(r)}, events "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}: {r['bytes_per_frame']} bytes, {r['ops_per_frame']} operations "
+              f"per frame), share of bound {r['share_of_bound']:.3f} ({card})")
 
     _no_jax()
 
@@ -1612,14 +1726,23 @@ def main() -> int:
                                        study_kernels(torch, fast, lk, st, card))
     _no_jax()
 
+    # ---- 13. the benchmark programs -----------------------------------------------
+    bn = run_bench(torch, params, counts, fast, lk, dev)
+    check_bench(bn, card)
+    _no_jax()
+    records["lk"]["max_abs_err"] = max(records["lk"]["max_abs_err"], bench_kernels(
+        torch, fast, lk, bn, tparams.fast_threshold, card))
+    _no_jax()
+
     kernels = []
     for name, k in (("fast", fast.K1), ("lk", lk.K2)):
         r = records[name]
         kernels.append({
             "name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
             "launches": counts.total[name], "max_abs_err": r["max_abs_err"],
-            **{key: r[key] for key in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                                       "share_of_bound", "launches_per_frame", "library_ms")},
+            **{key: r[key] for key in ("ms", "device_ms", "profiler_ms", "plain_ms", "bound_ms",
+                                       "bound_by", "share_of_bound", "launches_per_frame",
+                                       "library_ms")},
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

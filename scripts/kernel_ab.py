@@ -13,8 +13,9 @@ wrappers (the C entry points keep one signature). The inputs are the smoke's
 at 480x640, its two detection levels for K1, and its 200 features per agent
 tracked into frame 1 over three levels at half_win 10 for K2. The trees run
 in turns (a, b, b, a for two, ``--rounds`` times), each turn timing both
-kernels with ``chip_smoke.kernel_times`` (CUDA-event and profiler device
-time per launch, the plain version's time, the bound). Every tree's outputs
+kernels with ``chip_smoke.kernel_times`` (device time per launch from a
+CUDA graph, CUDA-event and profiler times, the plain version's time, the
+bound). Every tree's outputs
 are held against the plain versions first: K1 exactly, K2 with phase 2's
 gates. Prints ptxas's report of each build and one JSON object (also written
 to ``--out``). Needs a CUDA card.
@@ -32,6 +33,7 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
 from x_multi_agent_torch import configs, native  # noqa: E402
+from x_multi_agent_torch.utils.bench import card_line  # noqa: E402
 from x_multi_agent_torch.utils.scene import orbit_dataset  # noqa: E402
 from x_multi_agent_torch.vision import fast, lk  # noqa: E402
 
@@ -84,7 +86,7 @@ def main() -> int:
     levels = chip_smoke.k2_level_inputs(torch, lk, tparams, pyr0, pyr1, pts, tparams.win_half)
     level_inputs = [a for a, _ in levels]
 
-    out = {"card": chip_smoke._card_line(), "device": torch.cuda.get_device_name(0),
+    out = {"card": card_line(torch.device("cuda")), "device": torch.cuda.get_device_name(0),
            "features": int(live.sum()), "checks": {}, "turns": []}
     for name, cdll in libs.items():
         native._lib = cdll

@@ -6,8 +6,8 @@
 On the smoke's inputs (``chip_smoke.py`` phases 1, 2 and 4: frame 0 of the
 16-agent orbit dataset at 480x640, its two detection levels for K1, its
 200 features per agent tracked into frame 1 over three levels at half_win
-10 for K2) it reports, for each launch on its own, the profiler's device
-time and the bound (``chip_smoke.k1_work`` / ``k2_work``); for K1 the share
+10 for K2) it reports, for each launch on its own, the device time from a
+CUDA graph of 20 launches (``chip_smoke.graph_ms``) and the bound (``chip_smoke.k1_work`` / ``k2_work``); for K1 the share
 of pixels that pass the compass taps, and the device time when none pass
 (threshold 1e9: no pixel is scored in full) and without NMS; for K2 the
 histogram of the
@@ -29,6 +29,7 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
 from x_multi_agent_torch import configs  # noqa: E402
+from x_multi_agent_torch.utils.bench import card_line  # noqa: E402
 from x_multi_agent_torch.utils.scene import orbit_dataset  # noqa: E402
 from x_multi_agent_torch.vision import fast, lk  # noqa: E402
 
@@ -54,20 +55,19 @@ def main() -> int:
     frames, _ = orbit_dataset(N_AGENTS, 2, H, W, dev)
     pyr0, pyr1, _, pts, _ = chip_smoke.kernel_inputs(torch, tparams, frames[0], frames[1])
     levels = chip_smoke.k2_level_inputs(torch, lk, tparams, pyr0, pyr1, pts, tparams.win_half)
-    out = {"card": chip_smoke._card_line(), "fast": [], "lk": []}
+    out = {"card": card_line(torch.device("cuda")), "fast": [], "lk": []}
     for lvl in range(tparams.pyramid_depth):
         img = pyr0[lvl].contiguous()
         nbytes, ops = chip_smoke.k1_work(torch, fast, img, thr)
         out["fast"].append({
             "shape": list(img.shape),
-            "device_ms": chip_smoke.device_ms(torch, lambda: fast.fast_score_nms(img, thr),
-                                              "fast_score_nms_kernel"),
+            "device_ms": chip_smoke.graph_ms(torch, lambda: fast.fast_score_nms(img, thr),
+                                             fast.K1),
             "bound_ms": _bound_ms(nbytes, ops, chip_smoke.PEAK_OPS),
-            "device_ms_none_pass": chip_smoke.device_ms(
-                torch, lambda: fast.fast_score_nms(img, 1e9), "fast_score_nms_kernel"),
-            "device_ms_no_nms": chip_smoke.device_ms(
-                torch, lambda: fast.fast_score_nms(img, thr, nms=False),
-                "fast_score_nms_kernel"),
+            "device_ms_none_pass": chip_smoke.graph_ms(
+                torch, lambda: fast.fast_score_nms(img, 1e9), fast.K1),
+            "device_ms_no_nms": chip_smoke.graph_ms(
+                torch, lambda: fast.fast_score_nms(img, thr, nms=False), fast.K1),
             "compass_share": float(fast.compass_candidates(img, thr).float().mean()),
             "corner_share": float((fast.fast_score(img, thr) > 0).float().mean()),
         })
@@ -79,8 +79,8 @@ def main() -> int:
                                                  minlength=a[7] + 1).tolist()}
         for cap in (1, 3, a[7]):
             capped = a[:7] + (cap,) + a[8:]
-            rec[f"device_ms_steps_{cap}"] = chip_smoke.device_ms(
-                torch, lambda: lk.track_level(*capped), "lk_level_kernel")
+            rec[f"device_ms_steps_{cap}"] = chip_smoke.graph_ms(
+                torch, lambda: lk.track_level(*capped), lk.K2)
         out["lk"].append(rec)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -34,6 +34,7 @@ from x_multi_agent_torch import configs  # noqa: E402
 from x_multi_agent_torch.ekf import ekf as ekf_mod  # noqa: E402
 from x_multi_agent_torch.parallel import collab, match_store  # noqa: E402
 from x_multi_agent_torch.place_recognition import database as db_mod  # noqa: E402
+from x_multi_agent_torch.utils.bench import device_us  # noqa: E402
 from x_multi_agent_torch.utils.scene import orbit_dataset, orbit_start  # noqa: E402
 from x_multi_agent_torch.vio import pipeline, vio  # noqa: E402
 from x_multi_agent_torch.vision import tracker  # noqa: E402
@@ -43,15 +44,6 @@ AGENTS = 16
 WARM = 8  # warm-up frames
 FRAMES = 16  # frames timed with CUDA events
 TRACED = 3  # frames under the profiler
-
-
-def _device_us(event) -> float:
-    """Device time of one profiler event (the attribute was renamed across
-    torch versions)."""
-    for attr in ("device_time", "cuda_time", "self_device_time_total"):
-        if hasattr(event, attr):
-            return float(getattr(event, attr))
-    raise AttributeError("profiler event has no device time")
 
 
 def main() -> int:
@@ -117,7 +109,7 @@ def main() -> int:
         kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         by_name = {}
         for e in kernels:
-            by_name[e.name] = by_name.get(e.name, 0.0) + _device_us(e) / 1e3
+            by_name[e.name] = by_name.get(e.name, 0.0) + device_us(e) / 1e3
         busy_ms = sum(by_name.values())
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
         return {
