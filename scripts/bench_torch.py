@@ -12,7 +12,9 @@ step at ``BENCH_AGENTS`` (512) and at 128 agents, ``BENCH_ITERS`` (20)
 warm-up then timed steps; the batch-1 update latency (100 + 100 steps); the
 image-driven frame step on 480x640 orbit frames at each of
 ``BENCH_IMG_AGENTS`` (16,32,64), ``BENCH_IMG_ITERS`` (20) warm-up then timed
-frames. Timed with CUDA events around each timed window; the line carries
+frames. Each program is the compiled one (``utils/graph.py``: CUDA graphs,
+captured in the warm-up window, as the reference times one ``jax.jit``
+program). Timed with CUDA events around each timed window; the line carries
 the card's ``nvidia-smi`` name and power limit. On ``--device cpu`` the
 times are the host clock's and the line says so. Writes no file; a failed
 health assert fails the run.

@@ -11,8 +11,8 @@ the batch-1 update latency.
 Sweeps (``x_multi_agent_torch/utils/bench.py``): ``SCALE_AGENTS``
 (1,8,32,64,128,256,512) through ``bench_matches`` at 20 steps (20 warm-up,
 20 timed; the last 3 warm-up steps under ``torch.profiler``: the
-device-busy ms and idle share, and the host's kernel launch calls per
-step), ``SCALE_IMG_AGENTS`` (1,4,8,16,32) through ``bench_image`` at 8
+device-busy ms and idle share, and the host's kernel launch calls and
+CUDA-graph launches per step; the steps are the compiled programs), ``SCALE_IMG_AGENTS`` (1,4,8,16,32) through ``bench_image`` at 8
 frames on 480x640 frames, ``bench_batch1_latency``. Prints the tables,
 headed with the card's ``nvidia-smi`` name and power limit; writes them to
 ``--out`` only when it is given (never to the reference's ``SCALING.md``).
@@ -79,11 +79,12 @@ def main(argv=None) -> int:
         "steps under the profiler (idle share = 1 - device-busy / timed ms per step; launch "
         "calls counted on the host):", "",
         "| agents | updates/s/chip | updates/s/agent | ms/step | traced ms/step | "
-        "device-busy ms/step | idle share | launch calls/step |",
-        "|---|---|---|---|---|---|---|---|",
+        "device-busy ms/step | idle share | launch calls/step | graph launches/step |",
+        "|---|---|---|---|---|---|---|---|---|",
         *[f"| {a} | {v:.1f} | {v / a:.1f} | {st['ms_per_step']:.3f} | "
           f"{st['trace']['wall_ms']:.3f} | {_num(st['trace'].get('device_busy_ms'), 3)} | "
-          f"{_num(st.get('device_idle_share'), 4)} | {st['trace']['launch_calls']:.1f} |"
+          f"{_num(st.get('device_idle_share'), 4)} | {st['trace']['launch_calls']:.1f} | "
+          f"{st['trace']['graph_launches']:.1f} |"
           for a, v, st in rows], "",
         f"Image-driven frame step ({h}x{w} orbit frames: pyramid, gated FAST (K1), pyramidal LK "
         f"(K2), RANSAC, the filter step), 8 timed frames after 8 warm-up:", "",

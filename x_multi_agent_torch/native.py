@@ -132,14 +132,20 @@ _SIGNATURES = (
 )
 
 
+KERNELS: list = []  # every Kernel, in the order the wrappers made them
+
+
 class Kernel:
-    """Launch counter of one hand-written kernel's wrapper."""
+    """Launch counter of one hand-written kernel's wrapper, whose device
+    function is ``<name>_kernel`` (a compiled program's replays add the
+    launches of it that its graph holds: ``utils/graph.py``)."""
 
     def __init__(self, name: str, source: str, replaces: str):
         self.name = name
         self.source = source  # path in the repo
         self.replaces = replaces  # file:line of the Pallas kernel it replaces
         self.launches = 0
+        KERNELS.append(self)
 
     def launch(self, symbol: str, *args) -> None:
         import torch

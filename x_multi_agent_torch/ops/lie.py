@@ -8,10 +8,13 @@ from __future__ import annotations
 import torch
 
 from ..device import resolve
+from ..utils.const import constant
 
 
 def quat_identity(dtype=torch.float32, device=None) -> torch.Tensor:
-    return torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype, device=resolve(device))
+    """The identity (0, 0, 0, 1), built once per (dtype, device): do not
+    write into it."""
+    return constant((0.0, 0.0, 0.0, 1.0), dtype, resolve(device))
 
 
 def quat_multiply(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
@@ -30,7 +33,7 @@ def quat_multiply(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
 
 
 def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
-    return q * torch.tensor([-1.0, -1.0, -1.0, 1.0], dtype=q.dtype, device=q.device)
+    return q * constant((-1.0, -1.0, -1.0, 1.0), q.dtype, q.device)
 
 
 def quat_normalize(q: torch.Tensor) -> torch.Tensor:

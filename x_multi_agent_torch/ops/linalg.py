@@ -15,7 +15,7 @@ global: TF32 stays off (``torch.backends.cuda.matmul.allow_tf32 = False``),
 so every float32 matmul here is already full precision and ``highprec`` has
 no counterpart. The reference's TPU-only workarounds (Newton-Schulz inverse,
 Neumann triangular solves, unrolled Cholesky) are not ported: SPD solves use
-``torch.linalg.cholesky_ex`` + ``cholesky_solve``.
+``torch.linalg.cholesky_ex`` + two triangular solves (:func:`cholesky_solve`).
 """
 from __future__ import annotations
 
@@ -106,10 +106,28 @@ def nullspace_project(hf: torch.Tensor, h: torch.Tensor, res: torch.Tensor):
     return h_t[..., 3:, :], res_t[..., 3:], h_t[..., :3, :], (res_t[..., :3], hf_t[..., :3, :])
 
 
+def cholesky_solve(b: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
+    """S^-1 b from the lower Cholesky factor ``l`` of S: two triangular
+    solves (cuBLAS's batched TRSM on the card). ``torch.cholesky_solve`` on
+    a batch goes to MAGMA there, which allocates during the call, so a CUDA
+    graph cannot hold it."""
+    y = torch.linalg.solve_triangular(l, b, upper=False)
+    return torch.linalg.solve_triangular(l.transpose(-1, -2), y, upper=True)
+
+
+def spd_solve_ex(s: torch.Tensor, b: torch.Tensor):
+    """(S^-1 b, ok (...)) for SPD ``s`` (..., n, n), b (..., n, r): ``ok``
+    is false where the Cholesky factorization failed (``s`` not positive
+    definite to rounding); the solve's output is undefined there."""
+    l, info = torch.linalg.cholesky_ex(s)
+    return cholesky_solve(b, l), info == 0
+
+
 def spd_solve(s: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """S^-1 b for SPD ``s`` (..., n, n), b (..., n, r)."""
-    l, _ = torch.linalg.cholesky_ex(s)
-    return torch.cholesky_solve(b, l)
+    """S^-1 b for SPD ``s`` (..., n, n), b (..., n, r); NaN where ``s`` does
+    not factorize, so that a gate on the result rejects it."""
+    x, ok = spd_solve_ex(s, b)
+    return torch.where(ok[..., None, None], x, float("nan"))
 
 
 def qr_compress(
@@ -153,17 +171,32 @@ def kalman_update(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One (I)EKF update with whitened rows (R = I):
       S = H P H^T + I ;  K = P H^T S^-1
-      correction = K (res + H corr_tot) - corr_tot ;  P <- sym((I - K H) P)
-    Returns (correction, new_cov)."""
+      correction = K (res + H corr_tot) - corr_tot
+      P <- sym((I - K H) P (I - K H)^T + K K^T)   (Joseph form)
+    Returns (correction, new_cov).
+
+    The reference updates P <- sym((I - K H) P), equal to the Joseph form
+    in exact arithmetic for this K. In float32 a covariance can leave the
+    PSD cone by rounding (a feature inserted with a large variance leaves a
+    negative eigenvalue at rounding level); once an update has shrunk the
+    large variance, that eigenvalue is no longer small beside the rest,
+    later updates grow it, and S stops factorizing: the reference's form
+    then turns the agent's covariance non-finite, as the reference itself
+    does in float32 (ROADMAP C20). The Joseph form, a sum of two PSD
+    products, lets fewer agents get there; an agent whose S does not
+    factorize gets no update (K = 0: the correction undoes
+    ``correction_total`` and P is kept), so its covariance stays finite."""
     d = cov.shape[-1]
     eye_r = torch.eye(h.shape[-2], dtype=cov.dtype, device=cov.device)
     pht = cov @ h.transpose(-1, -2)
     s = h @ pht + eye_r
-    k = spd_solve(s, pht.transpose(-1, -2)).transpose(-1, -2)
+    k, ok = spd_solve_ex(s, pht.transpose(-1, -2))
+    k = torch.where(ok[..., None, None], k, 0.0).transpose(-1, -2)
     inn = res + (h @ correction_total[..., None])[..., 0]
     correction = (k @ inn[..., None])[..., 0] - correction_total
     eye_d = torch.eye(d, dtype=cov.dtype, device=cov.device)
-    new_cov = symmetrize((eye_d - k @ h) @ cov)
+    ikh = eye_d - k @ h
+    new_cov = symmetrize(ikh @ cov @ ikh.transpose(-1, -2) + k @ k.transpose(-1, -2))
     return correction, new_cov
 
 

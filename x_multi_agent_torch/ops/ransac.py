@@ -19,6 +19,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from . import linalg
 from ..utils.const import constant
 from ..utils.tree import take
 
@@ -59,7 +60,7 @@ def _eight_point(p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
     c = torch.where((info == 0)[..., None, None], c, float("nan"))
     x = constant(_START, a.dtype, a.device).expand(m.shape[:-1])[..., None]
     for _ in range(4):
-        x = torch.cholesky_solve(x, c)
+        x = linalg.cholesky_solve(x, c)
         x = x / torch.clamp(torch.linalg.norm(x, dim=-2, keepdim=True), min=1e-30)
     return x[..., 0].reshape(m.shape[:-2] + (3, 3))
 

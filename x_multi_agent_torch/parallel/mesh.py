@@ -40,7 +40,7 @@ from ..device import resolve
 from ..ekf import ekf as ekf_mod
 from ..ops import linalg
 from ..place_recognition import database as db_mod
-from ..utils import tree
+from ..utils import graph, tree
 from ..vio import pipeline
 from ..vio import vio as vio_mod
 from . import collab
@@ -175,10 +175,11 @@ def init_agents(params: vio_mod.VioParams, n_agents: int, mesh: AgentMesh):
     return vio_mod.init_at_time(params, 0.0, sl.stop - sl.start, mesh.device)
 
 
-def agent_step_fn(params: vio_mod.VioParams):
-    """The per-agent full step, batched over the leading agent axis: an IMU
-    batch, then one match-driven visual update. Returns (fs, slots,
-    applied (A,))."""
+def agent_step(params: vio_mod.VioParams):
+    """The per-agent full step, batched over the leading agent axis, run
+    eagerly: an IMU batch, then one match-driven visual update. ``(fs,
+    slots, imu_times, imu_seqs, imu_w, imu_a, meas_time, meas) -> (fs,
+    slots, applied (A,))``. The plain version of :func:`agent_step_fn`."""
 
     def step(fs, slots, imu_times, imu_seqs, imu_w, imu_a, meas_time,
              meas: pipeline.FrameMeasurement):
@@ -189,17 +190,20 @@ def agent_step_fn(params: vio_mod.VioParams):
     return step
 
 
+def agent_step_fn(params: vio_mod.VioParams) -> graph.Compiled:
+    """:func:`agent_step` compiled, as the reference's ``agent_step_fn``
+    returns ``jax.jit(_step)``: one CUDA graph per call on the card, (fs,
+    slots) the carry (``utils/graph.py``: the returned state is the
+    program's buffers, valid until its next call). Raises on CUDA if TF32
+    matmuls are on."""
+    return graph.compiled(agent_step(params), "agent_step", n_carry=2)
+
+
 def sharded_step(params: vio_mod.VioParams, mesh: AgentMesh):
     """The multi-rank step: :func:`agent_step_fn` on this rank's block, no
     collective (the agents are data-parallel). Raises on CUDA if TF32
     matmuls are on."""
-    step = agent_step_fn(params)
-
-    def _step(*args):
-        linalg.require_fp32_matmul(mesh.device, "sharded_step")
-        return step(*args)
-
-    return _step
+    return agent_step_fn(params)
 
 
 def sharded_collab_round(params: vio_mod.VioParams, ccfg: collab.CollabConfig, mesh: AgentMesh):

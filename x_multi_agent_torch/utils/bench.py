@@ -4,10 +4,16 @@ image-driven frame step on 480x640 orbit frames.
 
 Each program replays one input stream twice as long as its timed window: a
 warm-up window, then the consecutive timed window of the same replay, with
-every input staged on the device before it. The timed window is the Python
-loop of eager steps between two CUDA events with one synchronize at the end
-(on a CPU device, which only the tests ask for, the host clock). The
-reference's health asserts stay; each raises ``AssertionError``.
+every input staged on the device before it. As the reference times one
+``jax.jit`` program per window, the steps are compiled programs
+(``utils/graph.py``): the filter step is one CUDA graph per step
+(``mesh.agent_step_fn``), the image step the tracker's graphs around its
+detection gate and then that graph (``frame_step.CompiledFrameStep``); each
+is captured on its first warm-up step, never in the timed window. The timed
+window is the Python loop of those steps between two CUDA events with one
+synchronize at the end (on a CPU device, which only the tests ask for, the
+host clock; there the programs run their plain path). The reference's
+health asserts stay; each raises ``AssertionError``.
 
 Not ported (the reference's TPU-tunnel workarounds): ``measure_rtt``,
 ``_sync``'s scalar pull, ``_enable_compile_cache`` and ``main``'s retry
@@ -31,7 +37,7 @@ from ..parallel.mesh import agent_step_fn
 from ..vio import pipeline
 from ..vio import track_manager as tm
 from ..vio import vio as vio_mod
-from ..vio.frame_step import frame_step
+from ..vio.frame_step import CompiledFrameStep
 from ..vision import tracker as trk
 from . import tree
 from .scene import orbit_dataset
@@ -101,13 +107,14 @@ def match_inputs_stacked(params: vio_mod.VioParams, n_agents: int, n_steps: int,
     return dev(times), dev(seqs, torch.int32), dev(w), dev(a), dev(times[:, :, -1]), matches
 
 
-def filter_step(params: vio_mod.VioParams):
+def filter_step(params: vio_mod.VioParams, step=None):
     """One match-driven filter step, batched over the leading agent axis:
     ``process_imu_batch_impl``, then ``process_update_aux_impl`` over
-    ``pipeline.visual_update``. ``(fs, slots, times, seqs, w_m, a_m,
-    meas_time, matches) -> (fs, slots, applied (A,))``; raises on CUDA when
-    TF32 matmuls are on."""
-    step = agent_step_fn(params)
+    ``pipeline.visual_update``, through ``step`` (default: the compiled
+    ``agent_step_fn(params)``; ``mesh.agent_step(params)`` is its eager
+    twin). ``(fs, slots, times, seqs, w_m, a_m, meas_time, matches) -> (fs,
+    slots, applied (A,))``; raises on CUDA when TF32 matmuls are on."""
+    step = agent_step_fn(params) if step is None else step
 
     def one_step(fs, slots, times, seqs, w_m, a_m, meas_time, matches):
         linalg.require_fp32_matmul(fs.cov.device, "filter_step")
@@ -143,11 +150,16 @@ def _clock(device: torch.device):
     return (lambda: t0.append(time.perf_counter())), (lambda: time.perf_counter() - t0[-1])
 
 
-def launch_calls(prof) -> int:
-    """Kernel launches of a ``torch.profiler`` trace, counted on the host
-    (the runtime's launch calls; the tracer can drop device events)."""
-    return sum(1 for e in prof.events() if e.name in ("cudaLaunchKernel", "cuLaunchKernel",
-                                                         "cudaLaunchKernelExC", "cuLaunchKernelEx"))
+_KERNEL_LAUNCH = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx")
+_GRAPH_LAUNCH = ("cudaGraphLaunch", "cuGraphLaunch")
+
+
+def launch_calls(prof) -> tuple:
+    """(kernel launches, graph launches) of a ``torch.profiler`` trace,
+    counted on the host (the runtime's launch calls; the tracer can drop
+    device events)."""
+    names = [e.name for e in prof.events()]
+    return (sum(n in _KERNEL_LAUNCH for n in names), sum(n in _GRAPH_LAUNCH for n in names))
 
 
 def device_us(event) -> float:
@@ -159,20 +171,24 @@ def device_us(event) -> float:
     raise AttributeError("profiler event has no device time")
 
 
-def trace_calls(fn, reps: int, device: torch.device) -> dict:
+def trace_calls(fn, reps: int, device: torch.device, graphs=(), names=()) -> dict:
     """``reps`` calls of ``fn(i)`` under ``torch.profiler``: per call, the
-    wall ms (host clock, synchronized), the host's kernel launch calls, the
-    kernel events the tracer kept and their summed device ms, and the
-    device's idle share of the wall time (not measured on the CPU). Where
-    the tracer kept fewer device events than the host launched kernels, it
-    dropped some: the device ms and the idle share are then None (not
-    measured)."""
+    wall ms (host clock, synchronized), the host's kernel launch calls and
+    CUDA-graph launches, the device events the graphs of ``graphs``
+    (``utils.graph.Graphs``) replayed, the device events the tracer kept and
+    their summed device ms, and the device's idle share of the wall time
+    (not measured on the CPU); over all calls, the device events whose name
+    holds each of ``names`` (``named_events``). Where the tracer kept fewer device events
+    than the host launched kernels plus the replayed graphs hold, it dropped
+    some (or, where a graph's count is not known, may have): the device ms
+    and the idle share are then None (not measured)."""
     from torch.profiler import ProfilerActivity, profile
 
     cuda = device.type == "cuda"
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     if cuda:
         torch.cuda.synchronize(device)
+    nodes0 = [g.replayed_nodes for g in graphs]
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for i in range(reps):
@@ -180,12 +196,19 @@ def trace_calls(fn, reps: int, device: torch.device) -> dict:
         if cuda:
             torch.cuda.synchronize(device)
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-    rec = {"wall_ms": wall_ms, "launch_calls": launch_calls(prof) / reps}
+    kernel_calls, graph_calls = launch_calls(prof)
+    nodes = [g.replayed_nodes for g in graphs]
+    graph_nodes = (None if None in nodes0 + nodes
+                   else sum(b - a for a, b in zip(nodes0, nodes)) / reps)
+    rec = {"wall_ms": wall_ms, "launch_calls": kernel_calls / reps,
+           "graph_launches": graph_calls / reps, "graph_nodes": graph_nodes}
     if cuda:
         kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         busy = sum(device_us(e) for e in kernels) / 1e3 / reps
-        rec.update(kernel_events=len(kernels) / reps, device_busy_ms=None, device_idle_share=None)
-        if rec["kernel_events"] >= rec["launch_calls"]:
+        rec.update(kernel_events=len(kernels) / reps, device_busy_ms=None, device_idle_share=None,
+                   named_events={n: sum(n in e.name for e in kernels) for n in names})
+        held = rec["launch_calls"] + (graph_nodes or 0.0)
+        if (graph_nodes is not None or not graph_calls) and rec["kernel_events"] >= held:
             rec.update(device_busy_ms=busy, device_idle_share=1.0 - busy / wall_ms)
     return rec
 
@@ -209,7 +232,8 @@ def _match_replay(params, n_agents, n_steps, device, stats, traced):
     timed window's seconds."""
     fs, slots = vio_mod.init_at_time(params, 0.0, n_agents, device, v=np.asarray(SIM_V0))
     rng = np.random.default_rng(0)
-    step = filter_step(params)
+    compiled = agent_step_fn(params)
+    step = filter_step(params, compiled)
     warm = _per_step(match_inputs_stacked(params, n_agents, n_steps, rng, device=device))
     timed = _per_step(match_inputs_stacked(params, n_agents, n_steps, rng, frame0=n_steps,
                                            device=device))
@@ -221,7 +245,7 @@ def _match_replay(params, n_agents, n_steps, device, stats, traced):
             nonlocal fs, slots
             fs, slots, _ = step(fs, slots, *warm[n_untraced + i])
 
-        stats["trace"] = trace_calls(one, n_steps - n_untraced, device)
+        stats["trace"] = trace_calls(one, n_steps - n_untraced, device, (compiled.graphs,))
     start, stop = _clock(device)
     start()
     for x in timed:
@@ -310,17 +334,18 @@ def bench_image(params: vio_mod.VioParams, n_agents: int, n_steps: int, h: int =
     imu = [x.to(params.tdtype) if x.is_floating_point() else x for x in imu]
     fs, slots = vio_mod.init_at_time(params, 0.0, n_agents, device)
     tstate = trk.TrackerState.zero(tparams, n_agents, h, w, device=device)
+    step = CompiledFrameStep(params, tparams, cam)
 
     def one(k):
         nonlocal tstate, fs, slots
-        tstate, fs, slots, _, _ = frame_step(params, tparams, cam, tstate, fs, slots, frames[k],
-                                             *(x[k] for x in imu))
+        tstate, fs, slots, _, _ = step(tstate, fs, slots, frames[k], *(x[k] for x in imu))
 
     n_untraced = n_warm - min(traced, n_warm)
     for k in range(n_untraced):
         one(k)
     if n_untraced < n_warm:
-        stats["trace"] = trace_calls(lambda i: one(n_untraced + i), n_warm - n_untraced, device)
+        stats["trace"] = trace_calls(lambda i: one(n_untraced + i), n_warm - n_untraced, device,
+                                     step.graphs)
     start, stop = _clock(device)
     start()
     for k in range(n_warm, n_warm + n_steps):

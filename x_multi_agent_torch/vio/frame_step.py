@@ -4,7 +4,9 @@ per-agent filter step (IMU batch, then the match-driven visual update).
 This is the composition the reference's image benchmark times per frame
 (``tracker.track_frame_batch`` followed by ``ekf.process_imu_batch_impl``
 and ``ekf.process_update_aux_impl`` over ``pipeline.visual_update``); it
-adds no behaviour of its own.
+adds no behaviour of its own. :func:`frame_step` runs it eagerly;
+:class:`CompiledFrameStep` runs the compiled tracker and the compiled filter
+step, what the reference's ``bench.py`` scan body is per frame.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch
 
 from ..ekf import ekf as ekf_mod
 from ..ops import linalg
+from ..parallel.mesh import agent_step_fn
 from ..vision import camera as cam_mod
 from ..vision import tracker as trk
 from . import pipeline
@@ -56,3 +59,28 @@ def frame_step(
 
     fs, slots, applied = ekf_mod.process_update_aux_impl(ekf_p, fs, meas_time, update_fn, slots)
     return tstate, fs, slots, matches, applied
+
+
+class CompiledFrameStep:
+    """:func:`frame_step` as compiled programs (``utils/graph.py``): the
+    tracker's three graphs around its detection gate
+    (:class:`tracker.TrackerProgram`), then the filter step's graph
+    (``mesh.agent_step_fn``). Same arguments and results as
+    :func:`frame_step` without the static ones; the returned state,
+    matches and ``applied`` are the programs' buffers, valid until the next
+    call. ``graphs`` are the programs' graph sets (capture cost, replayed
+    device work)."""
+
+    def __init__(self, params: VioParams, tparams: trk.TrackerParams, cam: cam_mod.Camera,
+                 seed: int = 0):
+        self.params, self.seed = params, seed
+        self.tracker = trk.TrackerProgram(tparams, cam)
+        self.step = agent_step_fn(params)
+        self.graphs = (self.tracker.graphs, self.step.graphs)
+
+    def __call__(self, tstate, fs, slots, imgs, times, seqs, w_ms, a_ms, meas_time,
+                 ransac_idx: Optional[torch.Tensor] = None):
+        tstate, matches = self.tracker(tstate, imgs, self.seed, ransac_idx)
+        meas = pipeline.FrameMeasurement.from_matches(self.params.cfg, matches)
+        fs, slots, applied = self.step(fs, slots, times, seqs, w_ms, a_ms, meas_time, meas)
+        return tstate, fs, slots, matches, applied

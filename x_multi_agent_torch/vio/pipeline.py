@@ -31,6 +31,7 @@ from ..ekf.state import (
 )
 from ..ops import linalg
 from ..ops.triangulation import ivd_to_world, triangulate_gn
+from ..utils.const import constant
 from . import state_manager as sm
 from . import track_manager as tm
 from .range_facet import feature_triangle_at_point
@@ -168,8 +169,8 @@ def visual_update(
     m, n = dims.n_poses, dims.n_features
     d = dims.d
     dtype, dev = cov.dtype, cov.device
-    q_ic = torch.tensor(cfg.q_ic, dtype=dtype, device=dev)
-    p_ic = torch.tensor(cfg.p_ic, dtype=dtype, device=dev)
+    q_ic = constant(tuple(cfg.q_ic), dtype, dev)
+    p_ic = constant(tuple(cfg.p_ic), dtype, dev)
 
     # ---------------- 1. track classification (pre-slide window) ----------
     q_cur = camera_orientation(core, q_ic)

@@ -17,6 +17,7 @@ import torch
 from ..ekf.state import CoreState, StateDims, VisionState, camera_orientation, camera_position
 from ..ops import lie
 from ..ops.linalg import inv3
+from ..utils.const import constant
 from ..utils.tree import take, where
 
 
@@ -188,7 +189,7 @@ def _slide_t(dims: StateDims, vision: VisionState, dtype):
     transform."""
     m = dims.n_poses
     dev = vision.p_arr.device
-    pose_map = torch.cat([torch.arange(1, m, device=dev), torch.tensor([-1], device=dev)])
+    pose_map = torch.cat([torch.arange(1, m, device=dev), torch.full((1,), -1, device=dev)])
     idx, zero = _full_index_map(dims, dev, pose_map=pose_map)
     t = _perm_matrix(idx, zero, dims.d, dtype)
 
@@ -323,8 +324,7 @@ def init_new_features(
     )
     w_ms = var_img * torch.einsum("zkab,zkcb->zkac", h2_inv, h2_inv)
     f_std = torch.cat([z_obs, torch.full((a, k, 1), rho_0, dtype=dtype, device=dev)], dim=-1)
-    w_std = torch.diag(torch.tensor([var_img, var_img, sigma_rho_0 * sigma_rho_0],
-                                    dtype=dtype, device=dev))
+    w_std = torch.diag(constant((var_img, var_img, sigma_rho_0 * sigma_rho_0), dtype, dev))
     g_rows = torch.where(is_msckf[..., None, None], g_ms, 0.0)
     w_blk = torch.where(is_msckf[..., None, None], w_ms, w_std)
     f_new = torch.where(is_msckf[..., None], f_ms, f_std)

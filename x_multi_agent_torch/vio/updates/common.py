@@ -54,8 +54,10 @@ def scatter_block(h: torch.Tensor, block: torch.Tensor, col) -> torch.Tensor:
     matmul."""
     d = h.shape[-1]
     cols = torch.arange(d, device=h.device)
-    col = torch.as_tensor(col, device=h.device)
-    tgt = col[..., None] + torch.arange(3, device=h.device)
+    if isinstance(col, torch.Tensor):
+        tgt = col[..., None] + torch.arange(3, device=h.device)
+    else:
+        tgt = torch.arange(col, col + 3, device=h.device)
     sel = (cols == tgt[..., None]).to(h.dtype)  # (..., 3, D)
     return h + block @ sel
 

@@ -15,6 +15,7 @@ import torch
 
 from ...ops import lie, linalg, triangulation
 from ...utils.chi2 import chi2_gate
+from ...utils.const import constant
 from .common import UpdateRows, oc_project, projection_blocks
 
 GRAVITY = (0.0, 0.0, -9.81)
@@ -102,7 +103,7 @@ def build(
     a, k, m, _ = obs.shape
     dtype, dev = cov.dtype, cov.device
     d = cov.shape[-1]
-    g_vec = torch.tensor(GRAVITY, dtype=dtype, device=dev)
+    g_vec = constant(GRAVITY, dtype, dev)
 
     n_obs = torch.sum(mask, dim=-1)
     enough = n_obs >= 2

@@ -16,6 +16,7 @@ import torch
 from ..device import resolve
 from ..ops.ransac import keyed_sample_indices, ransac_inliers
 from ..place_recognition import descriptors
+from ..utils import graph
 from ..utils.tree import scatter_dump, take
 from ..vio.track_manager import Matches, stable_partition
 from . import camera as cam_mod
@@ -195,6 +196,47 @@ def _integrate(params, state: TrackerState, imgs, tracked, cur_pts, cand_xy, can
     )
 
 
+def _track_segment(params: TrackerParams, cam, state: TrackerState, imgs, ransac_idx,
+                   seed: int):
+    """Pyramids, LK (K2) and RANSAC: (matches, tracked, cur_pts, the current
+    pyramid, need_detect (A,), need_detect.any())."""
+    depth = params.lk_max_level
+    pyr_prev = build_pyramid(state.prev_img, depth)
+    pyr_cur = build_pyramid(imgs, depth)
+    matches, tracked, cur_pts = _track_core(
+        params, cam, state, imgs, pyr_prev, pyr_cur, ransac_idx, seed
+    )
+    need_detect = torch.sum(tracked, dim=1) < params.n_feat_min  # (A,)
+    return matches, tracked, cur_pts, tuple(pyr_cur), need_detect, need_detect.any()
+
+
+def _detect_segment(params: TrackerParams, state: TrackerState, imgs, tracked, cur_pts,
+                    pyr_cur, need_detect) -> TrackerState:
+    """The detection branch: FAST (K1), tile top-k and suppression, then the
+    slot update (only agents below the minimum append candidates)."""
+    pts1 = torch.where(tracked[..., None], cur_pts, 0.0)
+    cand_xy, cand_score, cand_level, cand_valid = _detect_new_batch(
+        params, pyr_cur, pts1, tracked
+    )
+    return _integrate(
+        params, state, imgs, tracked, cur_pts, cand_xy, cand_score, cand_level,
+        cand_valid & need_detect[:, None],
+    )
+
+
+def _keep_segment(state: TrackerState, imgs, tracked, cur_pts) -> TrackerState:
+    """The branch without detection: tracked features stay in their slots."""
+    return TrackerState(
+        pts=torch.where(tracked[..., None], cur_pts, 0.0).to(imgs.dtype),
+        ids=torch.where(tracked, state.ids, -1),
+        scores=torch.where(tracked, state.scores, 0.0),
+        levels=torch.where(tracked, state.levels, 0),
+        next_id=state.next_id,
+        prev_img=imgs,
+        has_prev=torch.ones_like(state.has_prev),
+    )
+
+
 def track_frame_batch(
     params: TrackerParams,
     cam: cam_mod.Camera,
@@ -214,33 +256,85 @@ def track_frame_batch(
     the test is a Python branch here, so it costs one device-to-host sync
     per frame. Per agent, only agents below the minimum append candidates.
     """
-    depth = params.lk_max_level
-    pyr_prev = build_pyramid(state.prev_img, depth)
-    pyr_cur = build_pyramid(imgs, depth)
-    matches, tracked, cur_pts = _track_core(
-        params, cam, state, imgs, pyr_prev, pyr_cur, ransac_idx, seed
+    matches, tracked, cur_pts, pyr_cur, need_detect, need_any = _track_segment(
+        params, cam, state, imgs, ransac_idx, seed
     )
-    need_detect = torch.sum(tracked, dim=1) < params.n_feat_min  # (A,)
-    if bool(need_detect.any()):
-        pts1 = torch.where(tracked[..., None], cur_pts, 0.0)
-        cand_xy, cand_score, cand_level, cand_valid = _detect_new_batch(
-            params, pyr_cur, pts1, tracked
-        )
-        new_state = _integrate(
-            params, state, imgs, tracked, cur_pts, cand_xy, cand_score, cand_level,
-            cand_valid & need_detect[:, None],
-        )
+    if bool(need_any):
+        new_state = _detect_segment(params, state, imgs, tracked, cur_pts, pyr_cur, need_detect)
     else:
-        new_state = TrackerState(
-            pts=torch.where(tracked[..., None], cur_pts, 0.0).to(imgs.dtype),
-            ids=torch.where(tracked, state.ids, -1),
-            scores=torch.where(tracked, state.scores, 0.0),
-            levels=torch.where(tracked, state.levels, 0),
-            next_id=state.next_id,
-            prev_img=imgs,
-            has_prev=torch.ones_like(state.has_prev),
-        )
+        new_state = _keep_segment(state, imgs, tracked, cur_pts)
     return new_state, matches
+
+
+class TrackerProgram(graph.Programs):
+    """:func:`track_frame_batch` as compiled programs (``utils/graph.py``),
+    the counterpart of the reference's ``track_frame_batch_jit``: per
+    capture key three CUDA graphs around the detection gate, (a) pyramids,
+    LK (K2) and RANSAC, (b) the detection branch (K1, tile top-k, the slot
+    update) and (c) the keep branch. A call replays (a), reads the gate (one
+    host read per frame, as :func:`track_frame_batch`), then replays (b) or
+    (c), each captured on its first use. The tracker state is the carry: a
+    call returns its buffers and (a)'s matches, both valid until the next
+    call. ``(state, imgs, seed=0, ransac_idx=None) -> (state, matches)``."""
+
+    def __init__(self, params: TrackerParams, cam: cam_mod.Camera, name: str = "tracker"):
+        super().__init__(name)
+        self.params, self.cam = params, cam
+
+    def __call__(self, state: TrackerState, imgs: torch.Tensor, seed: int = 0,
+                 ransac_idx: Optional[torch.Tensor] = None) -> Tuple[TrackerState, Matches]:
+        dev, bufs, prog = self.get((state, imgs, ransac_idx),
+                                   lambda b, label: self._program(b, seed, label), seed)
+        out = prog["a"](dev)
+        prog["a_out"] = out
+        prog["b" if bool(out[-1]) else "c"](dev)
+        return bufs[0], out[0]
+
+    def _program(self, bufs, seed: int, label: str) -> dict:
+        p, g = self.params, self.graphs
+        state, imgs, ridx = bufs
+        prog = {}
+
+        def detect():
+            _, tracked, cur_pts, pyr, need, _ = prog["a_out"]
+            graph.write_carry(state, _detect_segment(p, state, imgs, tracked, cur_pts, pyr, need),
+                              g.name)
+            return ()
+
+        def keep():
+            _, tracked, cur_pts = prog["a_out"][:3]
+            graph.write_carry(state, _keep_segment(state, imgs, tracked, cur_pts), g.name)
+            return ()
+
+        prog["a"] = g.graph(f"{label}:track",
+                            lambda: _track_segment(p, self.cam, state, imgs, ridx, seed))
+        prog["b"] = g.graph(f"{label}:detect", detect)
+        prog["c"] = g.graph(f"{label}:keep", keep)
+        return prog
+
+
+_JIT_PROGRAM = {}  # the last (params, cam) of track_frame_batch_jit and its program
+
+
+def track_frame_batch_jit(
+    params: TrackerParams,
+    cam: cam_mod.Camera,
+    state: TrackerState,
+    imgs: torch.Tensor,
+    seed: int = 0,
+    ransac_idx: Optional[torch.Tensor] = None,
+) -> Tuple[TrackerState, Matches]:
+    """:func:`track_frame_batch` compiled (the reference's
+    ``track_frame_batch_jit``): a :class:`TrackerProgram` for the last
+    (params, cam) it was called with. A call with another pair drops that
+    program and its graphs' memory pool; a caller that alternates keeps a
+    :class:`TrackerProgram` of its own for each. The returned state and
+    matches stay valid until the next call."""
+    prog = _JIT_PROGRAM.get((params, cam))
+    if prog is None:
+        _JIT_PROGRAM.clear()
+        prog = _JIT_PROGRAM[(params, cam)] = TrackerProgram(params, cam, "track_frame_batch_jit")
+    return prog(state, imgs, seed, ransac_idx)
 
 
 def track_frame(
