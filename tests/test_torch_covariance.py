@@ -24,6 +24,7 @@ factorize gets no update, so its covariance stays finite. These tests hold:
   than the reference's form on the port's solve (run with ``-s``, the test
   prints both counts).
 """
+import gc
 import os
 
 import numpy as np
@@ -200,6 +201,7 @@ def _at_rest_fleet(agents: int, n_data: int, n_frames: int = 20):
     params = configs.flagship_params()
     tparams = configs.flagship_tracker(params.cfg.tracks.n_matches)
     cam = configs.flagship_camera(h, w)
+    gc.collect()  # programs of earlier tests in reference cycles hold memory until collected
     torch.cuda.empty_cache()  # the rendered data is one block (17 GB at 512 agents x 27)
     frames, imu = bench.orbit_frames(agents, n_data, h, w, dev)
     imu = [x.to(params.tdtype) if x.is_floating_point() else x for x in imu]

@@ -55,7 +55,8 @@ class CaptureWitness(TorchDispatchMode):
     """Records every operation of its block that would break a CUDA-graph
     capture: the ops above, boolean-mask indexing, a tensor built from host
     data (``torch.tensor`` / ``torch.as_tensor`` of non-tensor data,
-    patched for the block, and ``lift_fresh`` of more than a scalar)."""
+    patched for the block, ``lift_fresh`` of more than a scalar, and a
+    Python scalar put through an index, ``x[idx] = 1``)."""
 
     def __init__(self):
         super().__init__()
@@ -73,6 +74,12 @@ class CaptureWitness(TorchDispatchMode):
             self._hit("boolean-mask index")
         elif name in ("lift_fresh", "lift_fresh_copy") and args[0].dim() > 0:
             self._hit("tensor from host data")
+        elif (name in ("index_put", "index_put_", "_index_put_impl_") and args[2].dim() == 0
+              and not args[2]._is_view()):
+            # x[idx] = scalar: the scalar becomes a host tensor that the card
+            # copies in during the call (values broadcast from a tensor
+            # arrive as a view)
+            self._hit("a scalar put through an index")
         return func(*args, **(kwargs or {}))
 
     def __enter__(self):
@@ -138,7 +145,9 @@ def test_witness_finds_what_breaks_a_capture():
     for bad in (lambda: x.sum().item(), lambda: bool(x.any()), lambda: x[x > 2],
                 lambda: torch.nonzero(x), lambda: torch.linalg.cholesky(torch.eye(3)),
                 lambda: torch.cholesky_solve(torch.ones(2, 3, 1), torch.eye(3).expand(2, 3, 3)),
-                lambda: torch.tensor([1.0, 2.0]) + x[:2], lambda: torch.as_tensor(3, device=CPU)):
+                lambda: torch.tensor([1.0, 2.0]) + x[:2], lambda: torch.as_tensor(3, device=CPU),
+                lambda: x.clone().index_put_((torch.arange(2),), torch.tensor(1.0)),
+                lambda: x.clone().__setitem__(torch.arange(2), 1.0)):
         with CaptureWitness() as w:
             bad()
         assert w.found, bad
@@ -371,6 +380,45 @@ def test_carried_results_must_match_the_carried_arguments():
     prog = graph.compiled(lambda s: (s.double(),), "widen", n_carry=1)
     with pytest.raises(ValueError, match="widen"):
         prog(torch.zeros(2))
+
+
+def test_shared_carry_passes_state_between_programs_without_copies():
+    """Two programs on one ``Carry``: what one returns is the buffer the
+    other reads and writes, passed back with no copy; a fresh tree is
+    copied into it."""
+    carry = graph.Carry()
+    double = graph.compiled(lambda s, x: (s * 2.0 + x,), "double", 1, carry)
+    add = graph.compiled(lambda s, x: (s + x, s.sum()), "add", 1, carry)
+    s, = double(torch.ones(3), torch.zeros(3))
+    s2, total = add(s, torch.full((3,), 1.0))
+    assert s2 is s and s.tolist() == [3.0] * 3 and float(total) == 6.0
+    with _Copies() as c:
+        s3, = double(s2, torch.zeros(3))
+    assert s3 is s and s.tolist() == [6.0] * 3 and c.n == 2  # the input and the carry write
+    with _Copies() as c:
+        s4, = double(torch.zeros(3), torch.ones(3))  # a fresh tree: copied in as well
+    assert s4 is s and s.tolist() == [1.0] * 3 and c.n == 3
+    assert double.captures == add.captures == 1
+
+
+def test_shared_carry_rejects_two_carried_arguments_of_one_spec():
+    prog = graph.compiled(lambda a, b: (b, a), "swap", 2, graph.Carry())
+    with pytest.raises(ValueError, match="swap"):
+        prog(torch.zeros(2), torch.ones(2))
+    assert graph.compiled(lambda a, b: (b, a), "swap", 2)(torch.zeros(2), torch.ones(2))[0].tolist() == [1.0] * 2
+
+
+def test_static_values_key_the_capture():
+    """A call's ``static`` values (what the function reads from its closure)
+    are part of its capture key."""
+    scale = {"k": 2.0}
+    prog = graph.compiled(lambda s: (s * scale["k"],), "scaled", 1)
+    s, = prog(torch.ones(2), static=(2.0,))
+    s, = prog(s, static=(2.0,))
+    assert prog.captures == 1 and s.tolist() == [4.0] * 2
+    scale["k"] = 3.0
+    s, = prog(s, static=(3.0,))
+    assert prog.captures == 2 and s.tolist() == [12.0] * 2
 
 
 # ---------------------------------------------------------------------------

@@ -34,6 +34,7 @@ from x_multi_agent_tpu.vio import vio as jvio
 from x_multi_agent_torch.parallel import collab as tcollab
 from x_multi_agent_torch.parallel import match_store as tms
 from x_multi_agent_torch.place_recognition import database as tdb
+from x_multi_agent_torch.utils import tree
 from x_multi_agent_torch.vio import vio as tvio
 
 TP = port_params(PARAMS)
@@ -510,8 +511,11 @@ def _closed_loop(n_frames, words, port_only=False, duration=None):
                 hits.append(found)
                 fused.append(vs[req].process_other_measurements(payload, uav_id=res)
                              if found else 0)
+            # a copy of each port facade's state: it is its programs' buffer,
+            # which the next frame overwrites
             ex[name] = (hits, fused, [v.n_keyframes_selected for v in vs],
-                        [v.fs for v in vs])
+                        [v.fs if name == "jax" else tree.map_leaves(torch.clone, v.fs)
+                         for v in vs])
         bytes_rr += 2 * vlad_b + sum(ex["port"][0]) * payload_b
         rec.append((f, ex))
     return rec, fac["port"], sims, bytes_rr, bytes_full

@@ -179,6 +179,8 @@ def jax_photo_sampler(dtype=jnp.float64):
     the reference's keyed draws (:func:`jax_photo_indices`)."""
 
     def draw(valid, frame, history=None):
+        if isinstance(frame, torch.Tensor):  # the compiled facade's (1,) frame key
+            frame = int(frame.reshape(-1)[0])
         return torch.from_numpy(jax_photo_indices(valid.cpu().numpy(), frame, dtype)).to(valid.device)
 
     return draw

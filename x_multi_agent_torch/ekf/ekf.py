@@ -209,6 +209,22 @@ def process_imu_batch_impl(params: EkfParams, fs: FilterState, times, seqs, w_ms
     return tree.where(fs.status == 2, batched, fs)
 
 
+def process_imu_packed(params: EkfParams, fs: FilterState, x):
+    """:func:`process_imu_impl` on one packed row per agent, ``x`` (A, 8)
+    float64 = (t, seq, w_m, a_m): the host's sample in one upload (the
+    ``VIO`` facade's compiled IMU program). Returns (fs, the tail core)."""
+    fs = process_imu_impl(params, fs, x[:, 0], x[:, 1].to(torch.int32), x[:, 2:5], x[:, 5:8])
+    return fs, tail_core(fs)
+
+
+def process_imu_batch_packed(params: EkfParams, fs: FilterState, x):
+    """:func:`process_imu_batch_impl` on packed rows, ``x`` (A, L, 8)
+    float64 (as :func:`process_imu_packed`). Returns (fs, the tail core)."""
+    fs = process_imu_batch_impl(params, fs, x[..., 0], x[..., 1].to(torch.int32), x[..., 2:5],
+                                x[..., 5:8])
+    return fs, tail_core(fs)
+
+
 # ---------------------------------------------------------------------------
 # update path
 # ---------------------------------------------------------------------------

@@ -41,12 +41,12 @@ from ..place_recognition import database as db_mod
 from ..place_recognition.descriptors import knn2_match
 from ..place_recognition.gt_matching import match_landmarks
 from ..place_recognition.vlad import compute_vlad
-from ..utils import tree
+from ..utils import graph, tree
 from ..utils.tree import take, topk_stable
 from ..vio import pipeline
 from ..vio.track_manager import stable_partition
 from ..vio.updates import msckf_multi, multi_slam
-from ..vio.vio import VioParams
+from ..vio.vio import VioParams, frame_measurement, update_report
 from . import match_store as ms_mod
 from .payload import AgentPayload, make_payload, slam_landmarks_world
 
@@ -232,6 +232,16 @@ def collaborative_round(params: VioParams, ccfg: CollabConfig, fs):
     return fs, torch.stack(ns, dim=1)
 
 
+def collaborative_round_fn(params: VioParams, ccfg: CollabConfig) -> graph.Compiled:
+    """:func:`collaborative_round` compiled, the reference's
+    ``collaborative_round_jit``: one CUDA graph per call on the card, ``fs``
+    the carry (``utils/graph.py``: the returned state and counts are the
+    program's buffers, valid until its next call). Each caller keeps its
+    own program. ``fs -> (fs, n_matches (A, A))``."""
+    return graph.compiled(lambda fs: collaborative_round(params, ccfg, fs), "collaborative_round",
+                          n_carry=1)
+
+
 def collaborative_msckf_round(params: VioParams, ccfg: CollabConfig, fs, slots):
     """Cross-agent joint-MSCKF CI round: each agent's longest opportunistic
     tracks (its own payload's collaborative set) are descriptor-matched
@@ -368,6 +378,18 @@ def process_matches_collab(params: VioParams, ccfg: CollabConfig, db_dims, words
     return fs, slots, store, db, kf_meta, applied, sel, n_collab
 
 
+def match_update_collab(params: VioParams, ccfg: CollabConfig, db_dims, fs, slots, store, db,
+                        kf_meta: KfMeta, words, x, matches):
+    """The ``VIO`` facade's collaborative update program:
+    :func:`process_matches_collab` on the facade's packed host row ``x``
+    (``vio.frame_measurement``). Returns (fs, slots, store, db, kf_meta,
+    report (A, 4) (``vio.update_report``), n_collab)."""
+    fs, slots, store, db, kf_meta, applied, sel, n_collab = process_matches_collab(
+        params, ccfg, db_dims, words, fs, slots, store, db, kf_meta,
+        *frame_measurement(params, x, matches))
+    return fs, slots, store, db, kf_meta, update_report(fs, applied, sel), n_collab
+
+
 def payload_nbytes(payload: AgentPayload) -> int:
     """Wire size in bytes of one agent's payload (static)."""
     leaves = (getattr(payload, f.name) for f in dataclasses.fields(payload))
@@ -473,6 +495,17 @@ def receive_and_record(params: VioParams, ccfg: CollabConfig, fs, slots, store,
                               ccfg.desc_abs_thr, store_when=payload_valid,
                               ransac_thr=ccfg.pr_ransac_thr, sampler=sampler)
     return fs, store, n, recency1
+
+
+def receive_and_record_packed(params: VioParams, ccfg: CollabConfig, fs, slots, store,
+                              payload: AgentPayload, x, recency=None, sampler=None):
+    """The ``VIO`` facade's receive program: :func:`receive_and_record` with
+    (sender id, payload valid) packed in one float64 row per agent, ``x``
+    (A, 2). Returns (fs, slots, store, n_fused (A,), recency')."""
+    fs, store, n, recency1 = receive_and_record(
+        params, ccfg, fs, slots, store, payload, x[:, 0].to(torch.int32), x[:, 1] != 0,
+        recency=recency, sampler=sampler)
+    return fs, slots, store, n, recency1
 
 
 def visual_update_with_store(params: VioParams, ccfg: CollabConfig, fs, slots, store,

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from ..device import resolve
-from . import checkpoint
+from . import checkpoint, tree
 
 DATASET_ROOT = os.environ.get("XMAT_DATASET_DIR", os.path.join(tempfile.gettempdir(),
                                                                "xmat_dataset"))
@@ -264,11 +264,12 @@ def _agent_state(v, n_agents: int):
     """A checkpointable snapshot of one agent's whole replay state: the
     states, the counters, the health monitor's last covariance trace (NaN
     for none), and the re-fusion recency per peer id < ``n_agents`` as
-    (present, (last id, last count, count))."""
+    (present, (last id, last count, count)). The states are copies: the
+    facade's are its programs' buffers, which its next frame overwrites."""
     from ..parallel import collab as collab_mod
     from ..vio import track_manager as tm
 
-    states = [getattr(v, k, None) for k in _STATES]
+    states = [tree.map_leaves(torch.clone, getattr(v, k, None)) for k in _STATES]
     if states[-1] is None:  # before the first frame: a template of its shape
         states[-1] = tm.Matches.zero(v.params.cfg.tracks, 1, v.params.tdtype, v.device)
     counters = tuple(int(getattr(v, k, 0)) for k in _COUNTERS)

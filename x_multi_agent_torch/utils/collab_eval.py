@@ -3,8 +3,9 @@
 
 Two agents fly the same simulated scene; agent B starts ``offset`` metres
 off under a prior that knows it (an error single-agent VIO cannot observe).
-Each agent runs the :class:`..vio.vio.VIO` facade; the collaborative pass
-runs a full-map exchange round every ``exchange_every`` frames. The metric
+Each agent runs the :class:`..vio.vio.VIO` facade (compiled); the
+collaborative pass runs the compiled full-map exchange round
+(``collab.collaborative_round_fn``) every ``exchange_every`` frames. The metric
 is agent B's full-trajectory ATE, solo against collaborative.
 """
 from __future__ import annotations
@@ -64,10 +65,12 @@ def run_collab_gain(
             valid=b(sim.match_valid[f]),
         )
 
-    def host(x):
-        return x[0].cpu().numpy()
+    def host(x):  # a copy: on the CPU a facade's state is its programs' buffer
+        return x[0].cpu().numpy().copy()
 
     def drive(collaborate: bool):
+        # the compiled full-map round (the reference's collaborative_round_jit)
+        round_fn = collab.collaborative_round_fn(params, ccfg)
         va = _new_agent(params, (0.0, 0.0, 0.0), 1e-3, device)
         vb = _new_agent(params, (offset, 0.0, 0.0), max(0.5, 2 * offset), device)
         est_a, est_b, anchor_b, cov_b = [], [], [], []
@@ -83,7 +86,9 @@ def run_collab_gain(
                 v.process_matches_measurement(t_cam, f, matches)
             if collaborate and (f + 1) % exchange_every == 0:
                 fs = tree.cat([va.fs, vb.fs])
-                fs, nm = collab.collaborative_round(params, ccfg, fs)
+                fs, nm = round_fn(fs)
+                # views of the round's buffers, copied into each facade's own
+                # by its next call (before the next round writes them)
                 va.fs = tree.map_leaves(lambda x: x[:1], fs)
                 vb.fs = tree.map_leaves(lambda x: x[1:], fs)
                 n_rounds += 1

@@ -19,6 +19,12 @@ program; passed back, they are not copied in (a fresh tree is, with
 the next call. Each call's other arguments are copied into buffers of their
 own.
 
+Several programs of one owner may share their carried state (a
+:class:`Carry`): each carried argument is staged once per spec for all of
+them, so a state one program returns is passed to the next with no copy (the
+``VIO`` facade's IMU, tracker, update and photometric programs share its
+filter state, track slots and collaboration state this way).
+
 On CPU tensors (the tests) the function runs on the same staged buffers with
 the same carry rule, with no graph: that is the plain path. On the card a
 capture or replay that fails raises, naming the program; nothing falls back
@@ -256,20 +262,53 @@ class _Graph:
         return out
 
 
+class Carry:
+    """Carry buffers that several programs of one owner share: one staged
+    tree per spec. A program stages each carried argument here, so what one
+    program carries is the buffer another reads and writes, and a state
+    passed back from any of them is not copied (a fresh tree is copied in).
+    The programs sharing it must carry no two arguments of one spec in one
+    call."""
+
+    def __init__(self):
+        self._bufs = {}
+
+    def stage(self, obj):
+        """The shared buffers of ``obj``'s spec, holding ``obj``."""
+        key = spec(obj)
+        bufs = self._bufs.get(key)
+        if bufs is None:
+            bufs = self._bufs[key] = stage(obj)
+        else:
+            copy_in(bufs, obj)
+        return bufs
+
+
 class Programs:
     """Per capture key, the static buffers of a program's arguments and what
     ``build(bufs, label)`` made on them (its graphs): the keying and staging
     of :class:`Compiled` and ``vision.tracker.TrackerProgram``. ``captures``
     counts the capture keys seen (graphs captured on the card, staged
-    buffer sets on the CPU)."""
+    buffer sets on the CPU). With a :class:`Carry`, the first ``n_carry``
+    arguments are staged in it."""
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, carry: Carry = None):
         self.name = name
         self.graphs = Graphs(name)
+        self.carry = carry
         self._built = {}
         self.captures = 0
 
-    def get(self, args: tuple, build: Callable, static=()):
+    def _stage(self, args: tuple, n_carry: int) -> tuple:
+        if self.carry is None or not n_carry:
+            return stage(args)
+        specs = [spec(x) for x in args[:n_carry]]
+        if len(set(specs)) != len(specs):
+            raise ValueError(f"{self.name}: two carried arguments of one spec share a Carry")
+        return tuple(self.carry.stage(x) if i < n_carry else stage(x)
+                     for i, x in enumerate(args))
+
+    def get(self, args: tuple, build: Callable, static=(), n_carry: int = 0):
         """(device, buffers, built) for ``args``, keyed on their spec and
         ``static``: staged and built on the key's first call, copied into
         the buffers after (``linalg.require_fp32_matmul`` every call)."""
@@ -278,7 +317,7 @@ class Programs:
         key = (spec(args), static)
         hit = self._built.get(key)
         if hit is None:
-            bufs = stage(args)
+            bufs = self._stage(args, n_carry)
             hit = self._built[key] = (bufs, build(bufs, f"{len(self._built)}"))
             self.captures += 1
         else:
@@ -287,15 +326,18 @@ class Programs:
 
 
 class Compiled(Programs):
-    """A function of state trees as a compiled program (module docstring)."""
+    """A function of state trees as a compiled program (module docstring).
+    ``static`` values of a call (hashable; e.g. a sampler the function reads
+    from its closure) are part of its capture key."""
 
-    def __init__(self, fn: Callable, name: str, n_carry: int = 0):
-        super().__init__(name)
+    def __init__(self, fn: Callable, name: str, n_carry: int = 0, carry: Carry = None):
+        super().__init__(name, carry)
         self.fn, self.n_carry = fn, n_carry
 
-    def __call__(self, *args):
+    def __call__(self, *args, static=()):
         dev, bufs, graph = self.get(
-            args, lambda b, label: self.graphs.graph(label, lambda: self._body(b)))
+            args, lambda b, label: self.graphs.graph(label, lambda: self._body(b)), static,
+            self.n_carry)
         return tuple(bufs[:self.n_carry]) + tuple(graph(dev))
 
     def _body(self, bufs):
@@ -306,7 +348,8 @@ class Compiled(Programs):
         return tuple(outs[n:])
 
 
-def compiled(fn: Callable, name: str, n_carry: int = 0) -> Compiled:
+def compiled(fn: Callable, name: str, n_carry: int = 0, carry: Carry = None) -> Compiled:
     """``fn`` as a compiled program whose first ``n_carry`` arguments and
-    results are the carried state (module docstring)."""
-    return Compiled(fn, name, n_carry)
+    results are the carried state, staged in ``carry`` when given (module
+    docstring)."""
+    return Compiled(fn, name, n_carry, carry)

@@ -13,6 +13,8 @@ from typing import Tuple
 
 import torch
 
+from ..utils.const import constant
+
 
 def feature_triangle_at_point(
     pts: torch.Tensor,  # (A, N, 2) SLAM feature image coordinates
@@ -22,8 +24,7 @@ def feature_triangle_at_point(
     """Returns (feature ids (A, 3) int32, found (A,) bool). With no
     containing triangle, ``argmin`` picks the first one in both packages."""
     n = pts.shape[1]
-    tri = torch.tensor(list(itertools.combinations(range(n), 3)), dtype=torch.long,
-                       device=pts.device)  # (T, 3)
+    tri = constant(tuple(itertools.combinations(range(n), 3)), torch.long, pts.device)  # (T, 3)
     a, b, c = pts[:, tri[:, 0]], pts[:, tri[:, 1]], pts[:, tri[:, 2]]  # (A, T, 2)
 
     def cross(o, u, v):

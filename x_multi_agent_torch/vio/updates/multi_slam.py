@@ -106,8 +106,12 @@ def apply_matches_pairs(
     ar = torch.arange(a, device=dev)
     n_app = torch.zeros((a,), dtype=torch.int32, device=dev)
     applied = []
+    n = vision.f_arr.shape[1]
     for i in range(k):
-        fid, ofid = own_fid[:, i].long(), other_fid[:, i].long()
+        # a masked match may carry the slot count N as its id: the reference's
+        # gathers clamp it (a negative id wraps in both), CUDA's assert
+        fid = torch.clamp(own_fid[:, i].long(), max=n - 1)
+        ofid = torch.clamp(other_fid[:, i].long(), max=n - 1)
         lam = other_lm_cov[ar, i, ofid, ofid]  # (A, 3, 3)
         f = vision.f_arr[ar, fid]
         a_idx = torch.clamp(vision.anchor_idx[ar, fid], min=0).long()
@@ -129,8 +133,8 @@ def apply_matches_pairs(
         s = s + var_lm * eye3
         # congruence scaling D P D of the involved rows and columns keeps
         # ci_P PSD with H ci_P H^T equal to the own term of S
-        touched = torch.zeros((a, d), dtype=torch.bool, device=dev)
-        touched[ar[:, None], _block_cols(m, a_idx, fid)] = True
+        touched = torch.zeros((a, d), dtype=torch.bool, device=dev).scatter_(
+            1, _block_cols(m, a_idx, fid), True)
         scale = torch.where(touched, torch.sqrt(w_result)[:, None], 1.0)
         ci_p = cov * scale[:, :, None] * scale[:, None, :]
         corr, cov1 = ci_mod.apply_ci(cov, ci_p, h, res, s)

@@ -7,6 +7,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ...ops import lie
+from ...utils.const import constant
 from .common import UpdateRows
 
 RAD2DEG = 57.2957795130
@@ -36,9 +37,9 @@ def build(
 ) -> UpdateRows:
     a, d = cov.shape[0], cov.shape[-1]
     dtype, dev = cov.dtype, cov.device
-    sun_w = torch.tensor(calib.sun_w, dtype=dtype, device=dev)
+    sun_w = constant(tuple(calib.sun_w), dtype, dev)
     sun_w = sun_w / torch.linalg.norm(sun_w)
-    r_is = lie.quat_to_rot(torch.tensor(calib.q_si, dtype=dtype, device=dev)).T
+    r_is = lie.quat_to_rot(constant(tuple(calib.q_si), dtype, dev)).T
     sun_b = (lie.quat_to_rot(q_imu).transpose(-1, -2) @ sun_w)  # (A, 3)
     s_sun = sun_b @ r_is.T
     s_sun = s_sun / torch.linalg.norm(s_sun, dim=-1, keepdim=True)

@@ -4,6 +4,15 @@
 and the stateful :class:`VIO`, which holds one agent's state with an agent
 axis of 1, with its online photometric calibration, its collaboration
 (keyframes, requests, the match store) and its debug-image render.
+
+The facade runs each per-frame call as compiled programs of its own
+(``utils/graph.py``: CUDA graphs on the card), the counterpart of the
+reference's ``jax.jit`` entries: the IMU sample and batch, the tracker, the
+photometric correction, frame and spatial solve, the match-driven update
+(plain, debug, collaborative) and the peer receive. They share the facade's
+state as one carry, so ``fs``, ``slots`` and the collaboration state are
+the programs' buffers between calls. ``VIO(..., compiled=False)`` is the
+eager twin: the same functions, called op by op, for comparison.
 """
 from __future__ import annotations
 
@@ -21,6 +30,7 @@ from ..ekf.state import CoreState, FilterState, VisionState
 from ..ops import lie, linalg
 from ..ops.ransac import KeyedSampler
 from ..photometric import calib
+from ..utils import graph, tree
 from ..utils.const import constant
 from ..vision.image import bilinear_sample
 from . import pipeline
@@ -213,24 +223,24 @@ def _cell_id(pts: torch.Tensor, cfg: PhotoConfig) -> torch.Tensor:
     return cy * cfg.n_cells_x + cx
 
 
-def _accumulate_spatial(cfg: PhotoConfig, ph: FacadePhoto, state: calib.PhotoState, cur_pts,
-                        cur_int, pair_valid, a_cur, b_cur) -> SpatialRing:
-    """Append the spatial residual rows of every real history at once: after
-    the per-frame global correction, the matched-intensity difference left
-    is put on the per-cell offsets, ps[cell_cur] - ps[cell_prev] = corr_cur
-    - corr_prev. Per history pair, an affine term alpha I + beta (the
-    residual gain error between the two frames) is fitted on the same-cell
-    rows, whose spatial expectation is zero, and removed when there are at
-    least 5 of them. The rows go in history order, as the reference's
-    per-history appends."""
-    k = ph.n_hist
-    sp = ph.spatial
+def _accumulate_spatial(cfg: PhotoConfig, k: int, ring: tuple, ptr, hist_int, hist_pts,
+                        state: calib.PhotoState, cur_pts, cur_int, pair_valid, a_cur, b_cur):
+    """Append the spatial residual rows of the ``k`` real histories at once
+    to ``ring`` = (sid_hist, sid_cur, rhs, valid) from row ``ptr`` (an int64
+    tensor): after the per-frame global correction, the matched-intensity
+    difference left is put on the per-cell offsets, ps[cell_cur] -
+    ps[cell_prev] = corr_cur - corr_prev. Per history pair, an affine term
+    alpha I + beta (the residual gain error between the two frames) is
+    fitted on the same-cell rows, whose spatial expectation is zero, and
+    removed when there are at least 5 of them. The rows go in history
+    order, as the reference's per-history appends. Returns the ring."""
+    sid_hist, sid_cur, rhs, valid = ring
     dev = cur_pts.device
     back = constant(tuple(range(1, k + 1)), torch.int32, dev)
     g_hist = state.params_pt[torch.remainder(state.frame_ptr - back, cfg.dims.window).long()]
     a_prev, b_prev = g_hist[:, :1], g_hist[:, 1:]
-    rows = (cur_int * (a_cur - b_cur) + b_cur) - (ph.hist_int[:k] * (a_prev - b_prev) + b_prev)
-    sid_p = _cell_id(ph.hist_pts[:k], cfg)  # (K, n)
+    rows = (cur_int * (a_cur - b_cur) + b_cur) - (hist_int[:k] * (a_prev - b_prev) + b_prev)
+    sid_p = _cell_id(hist_pts[:k], cfg)  # (K, n)
     sid_c = _cell_id(cur_pts, cfg).expand_as(sid_p)
     same = (sid_p == sid_c) & pair_valid[:k]
     n_same = torch.sum(same, -1, keepdim=True)
@@ -243,15 +253,107 @@ def _accumulate_spatial(cfg: PhotoConfig, ph: FacadePhoto, state: calib.PhotoSta
     alpha = torch.where(var_i > 1e-6, cov_ir / torch.clamp(var_i, min=1e-6), 0.0)
     beta = mr - alpha * mi
     rows = torch.where(n_same >= 5, rows - (alpha * cur_int + beta), rows)
-    s = sp.valid.shape[0]
-    idx = torch.remainder(sp.ptr + torch.arange(rows.numel(), device=dev), s)
-    return SpatialRing(
-        sid_hist=sp.sid_hist.index_copy(0, idx, sid_p.reshape(-1)),
-        sid_cur=sp.sid_cur.index_copy(0, idx, sid_c.reshape(-1)),
-        rhs=sp.rhs.index_copy(0, idx, rows.reshape(-1).to(sp.rhs.dtype)),
-        valid=sp.valid.index_copy(0, idx, pair_valid[:k].reshape(-1)),
-        ptr=(sp.ptr + rows.numel()) % s,
+    idx = torch.remainder(ptr + torch.arange(rows.numel(), device=dev), valid.shape[0])
+    return (sid_hist.index_copy(0, idx, sid_p.reshape(-1)),
+            sid_cur.index_copy(0, idx, sid_c.reshape(-1)),
+            rhs.index_copy(0, idx, rows.reshape(-1).to(rhs.dtype)),
+            valid.index_copy(0, idx, pair_valid[:k].reshape(-1)))
+
+
+def _photo_arrays(ph: FacadePhoto) -> tuple:
+    """The device part of the photometric state, the photometric frame
+    program's carry: (state, hist_int, hist_pts, hist_ids, the spatial ring's
+    (sid_hist, sid_cur, rhs, valid) or None). Its Python counters stay on
+    the host."""
+    sp = ph.spatial
+    ring = None if sp is None else (sp.sid_hist, sp.sid_cur, sp.rhs, sp.valid)
+    return (ph.state, ph.hist_int, ph.hist_pts, ph.hist_ids, ring)
+
+
+def photo_correct(state: calib.PhotoState, ps, img, dtype):
+    """The raw frame in ``dtype`` and the frame corrected with the newest
+    gains and the spatial map ``ps`` (or None). Returns (raw, corrected)."""
+    raw = img.to(dtype)
+    a, b = state.current().unbind(-1)
+    return raw, calib.correct_image(raw, a, b, params_ps=ps).to(dtype)
+
+
+def photo_frame(cfg: PhotoConfig, sampler, arrays: tuple, n_hist: int, raw, cur_pts, cur_ids,
+                counters):
+    """One frame of the facade's photometric calibration on its device
+    state ``arrays`` (:func:`_photo_arrays`) holding ``n_hist`` real
+    histories: sample the raw frame at the tracked points ``cur_pts`` (n,
+    2) of the tracks ``cur_ids`` (n,), update the gain chain from every
+    history at once (the reference's ``ProcessCurrentFrame``; the RANSAC
+    draws from ``sampler`` keyed on (the frame counter, the history row)),
+    append the spatial rows at the ring pointer, push this frame into the
+    ring. ``counters`` (2,) float64 holds (the frame counter, the ring
+    pointer). Returns (arrays,)."""
+    state, hist_int, hist_pts, hist_ids, ring = arrays
+    counters = counters.to(torch.int64)
+    n, fh = cfg.dims.n_obs, cfg.dims.n_history
+    dev = raw.device
+    cur_int = _photo_sample(raw, cur_pts)
+    if n_hist:
+        pair_valid = (hist_ids == cur_ids) & (cur_ids >= 0)  # (Fh, n)
+        offsets = constant(tuple(min(k + 1, n_hist) for k in range(fh)), torch.int32, dev)
+        state, a_cur, b_cur = calib.process_frame(
+            cfg.dims, state, hist_int, cur_int.expand(fh, n), pair_valid, offsets,
+            sampler(pair_valid, counters[:1], constant(tuple(range(fh)), torch.int64, dev)),
+            cfg.epsilon_gap, cfg.epsilon_base,
+        )
+        if ring is not None:
+            ring = _accumulate_spatial(cfg, n_hist, ring, counters[1], hist_int, hist_pts, state,
+                                       cur_pts, cur_int, pair_valid, a_cur, b_cur)
+    return ((state, torch.cat([cur_int[None], hist_int[:-1]]),
+             torch.cat([cur_pts[None], hist_pts[:-1]]), torch.cat([cur_ids[None], hist_ids[:-1]]),
+             ring),)
+
+
+def spatial_solve(cfg: PhotoConfig, hw, ps, ring: tuple):
+    """The GPR-smoothed per-cell offset map from the spatial ring, expanded
+    to the (H, W) frame (``ps`` is the map it replaces). Returns (ps,)."""
+    cells = calib.estimate_spatial_parameters(cfg.n_cells_x, cfg.n_cells_y, *ring)
+    return (calib.expand_spatial(cells, *hw, cfg.cell_px).to(ps.dtype),)
+
+
+def frame_measurement(params: VioParams, x, matches: tm.Matches):
+    """(meas_time (A,), FrameMeasurement) from one packed host row per agent,
+    ``x`` (A, 8) float64 = (t, range value, range point (2), range active,
+    sun angles (2), sun active), and the matches: the range and sun rows
+    count where their flags are set (zeros elsewhere, as
+    ``FrameMeasurement.from_matches``)."""
+    dt = params.tdtype
+    return x[:, 0], pipeline.FrameMeasurement(
+        matches=matches, range_value=x[:, 1].to(dt), range_img_pt=x[:, 2:4].to(dt),
+        range_active=x[:, 4] != 0, sun_angles=x[:, 5:7].to(dt), sun_active=x[:, 7] != 0,
     )
+
+
+def update_report(fs, applied, selected=None):
+    """What the host reads after an update, one float64 row per agent:
+    (applied, the tail position finite, the trace of the position
+    covariance, a keyframe selected)."""
+    sel = torch.zeros_like(applied) if selected is None else selected
+    tr = torch.diagonal(fs.cov[:, :3, :3], dim1=-2, dim2=-1).sum(-1)
+    fin = torch.isfinite(ekf_mod.tail_core(fs).p).all(-1)
+    return torch.stack([c.to(torch.float64) for c in (applied, fin, tr, sel)], -1)
+
+
+def match_update(params: VioParams, fs, slots, x, matches):
+    """The facade's match-driven update program: :func:`process_matches` on
+    the packed row ``x`` (:func:`frame_measurement`). Returns (fs, slots,
+    report (A, 4))."""
+    fs, slots, applied = process_matches(params, fs, slots, *frame_measurement(params, x, matches))
+    return fs, slots, update_report(fs, applied)
+
+
+def match_update_debug(params: VioParams, fs, slots, x, matches):
+    """:func:`match_update` through :func:`process_matches_debug`. Returns
+    (fs, slots, report, debug)."""
+    fs, slots, applied, dbg = process_matches_debug(params, fs, slots,
+                                                    *frame_measurement(params, x, matches))
+    return fs, slots, update_report(fs, applied), dbg
 
 
 class VIO:
@@ -259,12 +361,23 @@ class VIO:
     track slots and tracker of one agent, held with an agent axis of 1, on
     ``device``. It reads results back to the host where the reference's
     facade does (match counts, ``applied``, the health monitor). On a CUDA
-    device its IMU and update entries raise if TF32 matmuls are on."""
+    device its IMU and update entries raise if TF32 matmuls are on.
+
+    Its per-frame calls run as programs it owns (module docstring): the
+    states it holds (``fs``, ``slots``, ``photo``, the collaboration state)
+    are their buffers, overwritten in place by the next call; keep a
+    ``clone()`` to compare across calls. A program's other results (the IMU
+    entries' tail state, a received peer's recency) are valid until its next
+    call. ``compiled=False`` runs the same functions eagerly (the twin the
+    comparisons hold the programs against)."""
 
     def __init__(self, params: VioParams = VioParams(), self_init: bool = False,
-                 debug: bool = False, device=None):
+                 debug: bool = False, device=None, compiled: bool = True):
         self.params = params
         self.device = resolve(device)
+        self.compiled = compiled
+        self._carry = graph.Carry()
+        self._programs = {}
         self.fs: Optional[FilterState] = None
         self.slots: Optional[tm.TrackSlots] = None
         self._accel_batch = []
@@ -280,9 +393,37 @@ class VIO:
         self._healthy_frames = 0
         self.photo: Optional[FacadePhoto] = None
 
-    def _batch(self, x, dtype=torch.float64) -> torch.Tensor:
-        """Host value (or tensor) -> tensor with the agent axis of 1."""
-        return torch.as_tensor(x, dtype=dtype, device=self.device)[None]
+    def _upload(self, *cols) -> torch.Tensor:
+        """Host values (each ``(value, shape)``), reshaped and concatenated
+        along their last axis, as one float64 tensor on the device with the
+        agent axis of 1: one copy from pinned memory on the card, which does
+        not wait for its stream."""
+        x = torch.from_numpy(np.concatenate([np.reshape(np.asarray(
+            v.cpu() if isinstance(v, torch.Tensor) else v, np.float64), shape)
+            for v, shape in cols], axis=-1))[None]
+        if self.device.type == "cuda":
+            return x.pin_memory().to(self.device, non_blocking=True)
+        return x.to(self.device)
+
+    def _run(self, name: str, fn, n_carry: int, *args, static=()):
+        """``fn(*args)`` as this facade's program ``name``: compiled
+        (``utils/graph.py``) with its first ``n_carry`` arguments carried in
+        the facade's shared carry and ``static`` in its capture key, or
+        called as it is by the eager twin."""
+        if not self.compiled:
+            return fn(*args)
+        prog = self._programs.get(name)
+        if prog is None:
+            prog = self._programs[name] = graph.compiled(fn, f"VIO.{name}", n_carry, self._carry)
+        return prog(*args, static=static)
+
+    @property
+    def programs(self) -> list:
+        """The facade's compiled programs (``graph.Programs``), the tracker's
+        included."""
+        progs = list(self._programs.values())
+        tracker = getattr(self, "_tracker", None)
+        return progs + ([tracker] if isinstance(tracker, graph.Programs) else [])
 
     # -- setup / init -------------------------------------------------------
 
@@ -339,13 +480,16 @@ class VIO:
         self._bad_frames = 0
         self.n_reinits += 1
 
-    def _health_post_update(self, applied: bool):
+    def _health_post_update(self, applied: bool, report=None):
+        """The monitor's step after an update whose host ``report`` (the
+        update program's row: tail finite at [1], position trace at [2]) the
+        facade read; ``report`` is unread when nothing applied."""
         h = self._health
         healthy = applied
         if healthy:
-            healthy = bool(torch.isfinite(self.tail_state().p).all())
+            healthy = bool(report[1])
         if healthy and h["cov_pos_max"] is not None:
-            tr = float(torch.trace(self.fs.cov[0, :3, :3]))
+            tr = float(report[2])
             last = self._last_cov_tr
             shrinking = last is not None and tr < 0.98 * last
             healthy = bool(np.isfinite(tr)) and (tr < h["cov_pos_max"] or shrinking)
@@ -379,20 +523,21 @@ class VIO:
             self._self_init = False
             return None
         linalg.require_fp32_matmul(self.device, "VIO.process_imu")
-        self.fs = ekf_mod.process_imu_impl(
-            self.params.ekf_params, self.fs, self._batch(t), self._batch(seq, torch.int32),
-            self._batch(w_m), self._batch(a_m),
-        )
-        return ekf_mod.tail_core(self.fs)
+        x = self._upload((t, 1), (seq, 1), (w_m, 3), (a_m, 3))
+        ekf_p = self.params.ekf_params
+        self.fs, tail = self._run("process_imu", lambda fs, x: ekf_mod.process_imu_packed(
+            ekf_p, fs, x), 1, self.fs, x)
+        return tail
 
     def process_imu_batch(self, times, seqs, w_ms, a_ms):
-        """L IMU samples at once (times, seqs (L,); w_ms, a_ms (L, 3))."""
+        """L IMU samples at once (times, seqs (L,); w_ms, a_ms (L, 3)). The
+        program captures once per L (``jax.jit`` compiles once per shape)."""
         linalg.require_fp32_matmul(self.device, "VIO.process_imu_batch")
-        self.fs = ekf_mod.process_imu_batch_impl(
-            self.params.ekf_params, self.fs, self._batch(times), self._batch(seqs, torch.int32),
-            self._batch(w_ms), self._batch(a_ms),
-        )
-        return ekf_mod.tail_core(self.fs)
+        x = self._upload((times, (-1, 1)), (seqs, (-1, 1)), (w_ms, (-1, 3)), (a_ms, (-1, 3)))
+        ekf_p = self.params.ekf_params
+        self.fs, tail = self._run("process_imu_batch", lambda fs, x: ekf_mod.process_imu_batch_packed(
+            ekf_p, fs, x), 1, self.fs, x)
+        return tail
 
     # -- aux sensors ---------------------------------------------------------
 
@@ -419,6 +564,9 @@ class VIO:
         self._tracker_state = trk_mod.TrackerState.zero(
             tracker_params, 1, img_height, img_width, self.params.tdtype, self.device
         )
+        # the reference's track_frame_jit: this facade's own programs at A = 1
+        self._tracker = (trk_mod.TrackerProgram(tracker_params, camera, "VIO.tracker")
+                         if self.compiled else None)
 
     def enable_photometric(self, n_obs: int = 100, epsilon_gap: float = 0.02,
                            epsilon_base: float = 0.005, n_history: int = 3,
@@ -464,43 +612,32 @@ class VIO:
         """Update the gain chain from the tracked features' intensities in
         the raw frame against the history ring (the reference's
         ``ProcessCurrentFrame`` over several histories), append the spatial
-        rows, push this frame into the ring and, when due, solve the spatial
-        map."""
+        rows, push this frame into the ring (one program, captured once per
+        number of real histories) and, when due, solve the spatial map (a
+        second program; the gate reads the ring's valid rows on the host, as
+        the reference's ``if`` does)."""
         cfg, ph = self._photo_cfg, self.photo
         n, fh = cfg.dims.n_obs, cfg.dims.n_history
-        cur_pts = self._tracker_state.pts[0, :n]
-        cur_ids = self._tracker_state.ids[0, :n]
-        cur_int = _photo_sample(raw_img, cur_pts)
-        state, spatial = ph.state, ph.spatial
-        if ph.n_hist:
-            pair_valid = (ph.hist_ids == cur_ids) & (cur_ids >= 0)  # (Fh, n)
-            offsets = constant(tuple(min(k + 1, ph.n_hist) for k in range(fh)), torch.int32,
-                               self.device)
-            state, a_cur, b_cur = calib.process_frame(
-                cfg.dims, state, ph.hist_int, cur_int.expand(fh, n), pair_valid, offsets,
-                self.photo_sampler(pair_valid, ph.frame, constant(tuple(range(fh)), torch.int64,
-                                                                  self.device)),
-                cfg.epsilon_gap, cfg.epsilon_base,
-            )
-            if spatial is not None:
-                spatial = _accumulate_spatial(cfg, ph, state, cur_pts, cur_int, pair_valid,
-                                              a_cur, b_cur)
+        sp = ph.spatial
+        ptr = 0 if sp is None else sp.ptr
+        counters = self._upload((ph.frame, 1), (ptr, 1))[0]
+        arrays, = self._run(
+            "photo_frame", lambda arrays, n_hist, raw, pts, ids, c: photo_frame(
+                cfg, self.photo_sampler, arrays, n_hist, raw, pts, ids, c),
+            1, _photo_arrays(ph), ph.n_hist, raw_img, self._tracker_state.pts[0, :n],
+            self._tracker_state.ids[0, :n], counters, static=(self.photo_sampler,))
+        state, hist_int, hist_pts, hist_ids, ring = arrays
+        k = ph.n_hist
+        if sp is not None:
+            sp = SpatialRing(*ring, ptr=(sp.ptr + k * n) % sp.valid.shape[0])
         ps = ph.ps
         frame = ph.frame + 1
-        if (spatial is not None and frame % cfg.spatial_every == 0
-                and int(spatial.valid.sum()) >= 20):
-            cells = calib.estimate_spatial_parameters(
-                cfg.n_cells_x, cfg.n_cells_y, spatial.sid_hist, spatial.sid_cur, spatial.rhs,
-                spatial.valid,
-            )
-            ps = calib.expand_spatial(cells, *self._img_hw, cfg.cell_px)
-        self.photo = FacadePhoto(
-            state=state,
-            hist_int=torch.cat([cur_int[None], ph.hist_int[:-1]]),
-            hist_pts=torch.cat([cur_pts[None], ph.hist_pts[:-1]]),
-            hist_ids=torch.cat([cur_ids[None], ph.hist_ids[:-1]]),
-            n_hist=min(ph.n_hist + 1, fh), frame=frame, spatial=spatial, ps=ps,
-        )
+        if sp is not None and frame % cfg.spatial_every == 0 and int(sp.valid.sum()) >= 20:
+            ps, = self._run("spatial_solve", lambda ps, ring: spatial_solve(
+                cfg, self._img_hw, ps, ring), 1, ps, ring)
+        self.photo = FacadePhoto(state=state, hist_int=hist_int, hist_pts=hist_pts,
+                                 hist_ids=hist_ids, n_hist=min(k + 1, fh), frame=frame,
+                                 spatial=sp, ps=ps)
 
     def process_image_measurement(self, t: float, seq: int, img, ransac_idx=None):
         """Track features in the (H, W) image, then run the visual update.
@@ -509,16 +646,27 @@ class VIO:
         the gains update from the raw one."""
         from ..vision import tracker as trk_mod
 
-        raw = torch.as_tensor(img, dtype=self.params.tdtype, device=self.device)
-        img = raw
+        dt = self.params.tdtype
+        if isinstance(img, torch.Tensor):
+            img = img.to(self.device)
+        else:
+            img = torch.from_numpy(np.ascontiguousarray(img))
+            img = (img.pin_memory().to(self.device, non_blocking=True)
+                   if self.device.type == "cuda" else img)
         if self.photo is not None:
             linalg.require_fp32_matmul(self.device, "VIO.process_image_measurement")
-            a, b = self.photo.state.current().unbind(-1)
-            img = calib.correct_image(raw, a, b, params_ps=self.photo.ps).to(self.params.tdtype)
-        self._tracker_state, matches = trk_mod.track_frame(
-            self._tracker_params, self._camera, self._tracker_state, img,
-            seed=self._seed, ransac_idx=ransac_idx,
-        )
+            raw, cor = self._run("photo_correct", lambda state, ps, img: photo_correct(
+                state, ps, img, dt), 0, self.photo.state, self.photo.ps, img)
+        else:
+            raw = cor = img.to(dt)
+        if self.compiled:
+            self._tracker_state, matches = self._tracker(self._tracker_state, cor[None],
+                                                         self._seed, ransac_idx)
+        else:
+            self._tracker_state, matches = trk_mod.track_frame(
+                self._tracker_params, self._camera, self._tracker_state, cor,
+                seed=self._seed, ransac_idx=ransac_idx,
+            )
         if self.photo is not None:
             self._photometric_update(raw)
         # pad/crop the tracker's match budget to the pipeline's budget
@@ -542,53 +690,57 @@ class VIO:
     # -- visual updates -------------------------------------------------------
 
     def process_matches_measurement(self, t: float, seq: int, matches: tm.Matches) -> bool:
-        """The visual update from one frame's matches (agent axis of 1)."""
+        """The visual update from one frame's matches (agent axis of 1): one
+        program (plain, debug or collaborative), then one host read of its
+        report (``applied``, the keyframe step, the health monitor's
+        values)."""
         linalg.require_fp32_matmul(self.device, "VIO.process_matches_measurement")
-        dt = self.params.tdtype
         if self._health is not None:
             # tracking-quality gate: starved frames are withheld from the filter
             if int(matches.valid.sum()) < self._health["min_matches"]:
                 self._last_matches = matches
                 self._health_post_update(False)
                 return False
-        meas = pipeline.FrameMeasurement.from_matches(self.params.cfg, matches)
+        rng, sun = (0.0, np.zeros(2), 0.0), (np.zeros(2), 0.0)
         if self._last_range is not None:
-            rv, pt = self._last_range
-            meas = meas._replace(
-                range_value=self._batch(rv, dt), range_img_pt=self._batch(pt, dt),
-                range_active=self._batch(True, torch.bool),
-            )
+            rng = (self._last_range[0], self._last_range[1], 1.0)
             self._last_range = None
         if self._last_sun is not None:
-            meas = meas._replace(sun_angles=self._batch(self._last_sun, dt),
-                                 sun_active=self._batch(True, torch.bool))
+            sun = (self._last_sun, 1.0)
             self._last_sun = None
+        x = self._upload((t, 1), (rng[0], 1), (rng[1], 2), (rng[2], 1), (sun[0], 2), (sun[1], 1))
         self._last_matches = matches
+        params = self.params
+        dbg = None
         if self._collab_enabled:
             from ..parallel import collab as collab_mod
 
-            (self.fs, self.slots, self._store, self._db, self._kf_meta, applied, kf_sel,
-             n_collab) = collab_mod.process_matches_collab(
-                self.params, self._ccfg, self._db_dims, self._words, self.fs, self.slots,
-                self._store, self._db, self._kf_meta, self._batch(t), meas,
-            )
+            ccfg, db_dims = self._ccfg, self._db_dims
+            (self.fs, self.slots, self._store, self._db, self._kf_meta, report,
+             n_collab) = self._run(
+                "process_matches_collab",
+                lambda fs, slots, store, db, kf_meta, words, x, m: collab_mod.match_update_collab(
+                    params, ccfg, db_dims, fs, slots, store, db, kf_meta, words, x, m),
+                5, self.fs, self.slots, self._store, self._db, self._kf_meta, self._words, x,
+                matches)
             self.n_collab_consumed = self.n_collab_consumed + n_collab[0]
-            self.n_keyframes_selected += int(kf_sel[0])
-            applied = bool(applied[0])
         elif self._debug:
-            self.fs, self.slots, applied, dbg = process_matches_debug(
-                self.params, self.fs, self.slots, self._batch(t), meas
-            )
-            applied = bool(applied[0])
-            if applied:  # dropped updates keep the last real payload
-                self.last_debug = dbg
+            self.fs, self.slots, report, dbg = self._run(
+                "process_matches_debug",
+                lambda fs, slots, x, m: match_update_debug(params, fs, slots, x, m),
+                2, self.fs, self.slots, x, matches)
         else:
-            self.fs, self.slots, applied = process_matches(
-                self.params, self.fs, self.slots, self._batch(t), meas
-            )
-            applied = bool(applied[0])
+            self.fs, self.slots, report = self._run(
+                "process_matches", lambda fs, slots, x, m: match_update(params, fs, slots, x, m),
+                2, self.fs, self.slots, x, matches)
+        report = report[0].tolist()  # the one host read after the update
+        applied = bool(report[0])
+        if self._collab_enabled:
+            self.n_keyframes_selected += int(report[3])
+        if applied and dbg is not None:  # dropped updates keep the last real payload
+            self.last_debug = tree.map_leaves(torch.clone, dbg)
         if self._health is not None:
-            self._health_post_update(applied)
+            self._health_post_update(applied, report)
         return applied
 
     # -- multi-agent collaboration (request-response) ---------------------------
@@ -671,14 +823,16 @@ class VIO:
         recency = None
         if self._ccfg.refuse_cooldown > 0:
             recency = self._fuse_recency.get(uav_id) or collab_mod.fresh_recency(self.slots)
-        self.fs, self._store, n, recency1 = collab_mod.receive_and_record(
-            self.params, self._ccfg, self.fs, self.slots, self._store, payload,
-            self._batch(uav_id, torch.int32), self._batch(bool(valid), torch.bool),
-            recency=recency, sampler=self.sampler,
-        )
-        if recency is not None:
+        params, ccfg = self.params, self._ccfg
+        x = self._upload((uav_id, 1), (bool(valid), 1))
+        self.fs, self.slots, self._store, n, recency1 = self._run(
+            "receive_and_record",
+            lambda fs, slots, store, payload, x, rec: collab_mod.receive_and_record_packed(
+                params, ccfg, fs, slots, store, payload, x, rec, self.sampler),
+            3, self.fs, self.slots, self._store, payload, x, recency, static=(self.sampler,))
+        if recency is not None:  # the program's outputs: kept past its next call
             last_id, last_cnt, cnt = recency1
-            self._fuse_recency[uav_id] = (last_id, last_cnt, cnt + 1)
+            self._fuse_recency[uav_id] = (last_id.clone(), last_cnt.clone(), cnt + 1)
         return int(n[0])
 
     # -- telemetry -------------------------------------------------------------
