@@ -82,18 +82,33 @@ Phases (any failure raises, so the exit code is non-zero):
      render than the raw ones (run B's card against the CPU: phase 15);
  10. the multi-rank exchange (``parallel/mesh.py``): (a) 2 gloo ranks, both
      on the one card (``mesh.spawn_agents``), each run phase 7's fleet on
-     its block of 8 agents (rendered in the rank, ``frame_step`` with
-     descriptors and the keyframe step for 20 frames, phase 7's words), then
-     ``sharded_collab_round_desc`` and ``sharded_collab_round``, timed with
-     CUDA events, with the bytes each collective shipped; the
-     single-process rounds on the gathered pre-round states (the same keyed
-     RANSAC draws) give the same integers and floats within 1e-4 of each
-     leaf's max; asserts >= 90 % applied, finite covariances, K1 and K2
-     (>= 3 per frame) launched in each rank, a hit and a fused match; (b)
-     the same two sharded rounds in this process at NCCL world size 1 on
-     all 16 agents: bit for bit the single-process rounds; (c)
-     ``dryrun.dryrun_multichip`` on 2 gloo ranks of 2 agents on the card,
-     with its checks. The phase's wall time is printed;
+     its block of 8 agents (rendered in the rank) through
+     ``frame_step.CompiledFrameStep`` with descriptors (K1/K2 launched from
+     the tracker's graphs, counted from their kernel nodes) and the eager
+     keyframe step for 20 frames, phase 7's words; then the round twins
+     from the state after the last frame: ``EXCHANGE_ROUNDS`` rounds, each
+     ``sharded_collab_round_desc`` then ``sharded_collab_round``, by the
+     compiled programs (gloo: a graph per segment around each host-staged
+     collective) and by their plain twins (``compiled=False``), every leaf
+     of every output compared after every round; per twin and program ms
+     per round (CUDA events; over the replays and over all rounds), kernel
+     launch calls outside graphs and graph launches per round (a host-only
+     ``torch.profiler`` trace), host syncs per round (the sync debug mode),
+     graphs captured, capture seconds and pool bytes, and the bytes each
+     twin shipped; the single-process rounds on the gathered pre-round
+     states (the same keyed RANSAC draws) give the same integers and floats
+     within 1e-4 of each leaf's max as the compiled first rounds; asserts >=
+     90 % applied, finite covariances, K1 and K2 (>= 3 per frame) launched
+     in each rank, a hit and a fused match, every round bit for bit, the
+     twins' bytes equal, 3 and 2 graph launches per compiled descriptor and
+     full-map round; (b) the same twins in this process at NCCL world size
+     1 on all 16 agents: the compiled first rounds bit for bit the
+     single-process rounds, every round bit for bit its plain twin, one
+     graph per compiled round with its collective inside (1 graph launch,
+     no host sync, fewer than 10 launch calls outside it); (c)
+     ``dryrun.dryrun_multichip`` on 2 gloo ranks of 2 agents on the card
+     (its rounds compiled), with its checks. The phase's wall time is
+     printed;
  11. the dataset-replay ATE report (``utils/ate_report.py``) through
      ``run_report`` as its CLI runs it with ``--vocab random --duration
      3``: the thermal 6-DoF dataset of 4 agents at 480x640 rendered on the
@@ -225,6 +240,7 @@ N_FACADE = N_WARM + N_TIMED
 N_RC, RC_ROUNDS = 20, (15, 20)  # request-response fleet: frames, rounds after these
 N_WORDS, EXCHANGE_EVERY = 64, 3
 N_RANKS = 2  # phase 10: gloo ranks of the multi-rank exchange, all on the one card
+EXCHANGE_ROUNDS = 3  # phase 10: rounds of each twin (compiled and plain) from one start
 ATE_DURATION, ATE_BUDGET_S = 3.0, 180.0  # phase 11: 30 frames per pass; its wall budget
 # phase 12: the harsh pass's length, its camera blackout (frames) and the
 # black frame whose kernel inputs are held; the ablation's length; the gate
@@ -915,23 +931,27 @@ def photo_card_vs_cpu(torch, last) -> dict:
 def exchange_rank(mesh, n_agents, words):
     """Phase 10a's rank, in a process of its own (``mesh.spawn_agents``):
     this rank's block of phase 7's fleet (a fresh fleet from
-    ``orbit_start``, ``frame_step`` with descriptors and the keyframe step
-    for ``N_RC`` frames, rendered here), then ``sharded_collab_round_desc``
-    and ``sharded_collab_round``, each timed with CUDA events. Returns the
-    block's pre-round states, round outputs, K1/K2 launches, updates
-    applied, bytes shipped per collective and ms per round."""
+    ``orbit_start``, rendered here) through ``frame_step.CompiledFrameStep``
+    with descriptors for ``N_RC`` frames (K1/K2 launched from the tracker's
+    graphs and counted from their nodes), the keyframe step after each
+    (eager, as in the reference), then :func:`round_twins` from the state
+    after the last frame. Returns the block's pre-round states, the compiled
+    twin's first round outputs, the twins' record, K1/K2 launches (and
+    whether every graph's were read from its nodes) and updates applied."""
     import torch
 
     _no_jax()
     from x_multi_agent_torch import configs
-    from x_multi_agent_torch.parallel import collab, mesh as pmesh
+    from x_multi_agent_torch.parallel import collab
     from x_multi_agent_torch.place_recognition import database as db_mod
+    from x_multi_agent_torch.utils import tree
     from x_multi_agent_torch.utils.scene import orbit_dataset, orbit_start
     from x_multi_agent_torch.vio import vio
-    from x_multi_agent_torch.vio.frame_step import frame_step
+    from x_multi_agent_torch.vio.frame_step import CompiledFrameStep
     from x_multi_agent_torch.vision import fast, lk, tracker
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
     dev, sl = mesh.device, mesh.block(n_agents)
     blk = sl.stop - sl.start
     frames, (times, seqs, w_ms, a_ms) = orbit_dataset(n_agents, N_RC, H, W, dev, agents=sl)
@@ -949,22 +969,121 @@ def exchange_rank(mesh, n_agents, words):
     db = db_mod.KeyframeDB.zero(db_dims, collab.extract_payload_desc(params, fs, slots))
     kf_meta = collab.KfMeta.zero(blk, fs.cov.dtype, dev)
     n_applied = torch.zeros((), dtype=torch.int64, device=dev)
+    step = CompiledFrameStep(params, tparams, cam, seed=2)
     for k in range(N_RC):
-        tstate, fs, slots, _, applied = frame_step(
-            params, tparams, cam, tstate, fs, slots, frames[k], times[k], seqs[k], w_ms[k],
-            a_ms[k], times[k][:, -1], seed=2,
-        )
+        tstate, fs, slots, _, applied = step(tstate, fs, slots, frames[k], times[k], seqs[k],
+                                             w_ms[k], a_ms[k], times[k][:, -1])
         db, kf_meta, _ = collab.maybe_add_keyframe(params, db_dims, words, fs, slots, db,
                                                    kf_meta, enabled=applied)
         n_applied = n_applied + applied.sum()
     launches = {"fast": fast.K1.launches, "lk": lk.K2.launches}
-    desc, ms_desc = _timed(torch, lambda: pmesh.sharded_collab_round_desc(
-        params, ccfg, words, mesh)(fs, slots, db))
-    full, ms_full = _timed(torch, lambda: pmesh.sharded_collab_round(params, ccfg, mesh)(desc[0]))
+    pre = tree.map_leaves(torch.clone, (fs, slots, db))  # the step's buffers, kept
+    drive_s = time.perf_counter() - t0
+    twins, first = round_twins(torch, mesh, params, ccfg, words, *pre)
     _no_jax()
-    return {"pre": (fs, slots, db), "desc": desc, "full": full, "launches": launches,
-            "applied": int(n_applied), "shipped": dict(mesh.shipped),
-            "ms": {"desc": ms_desc, "full": ms_full}}
+    return {"pre": pre, **first, "twins": twins, "launches": launches,
+            "kernels_read": all(g.kernels_read for g in step.graphs), "applied": int(n_applied),
+            "seconds": {"drive": drive_s, "twins": time.perf_counter() - t0 - drive_s}}
+
+
+def watched_call(torch, fn, traced: bool) -> tuple:
+    """``fn()`` watched, for the twins of phases 10 and 15: (its result, ms
+    by CUDA events around it, the synchronizing calls that the sync debug
+    mode warned of, and with ``traced`` (kernel launch calls, graph
+    launches) from a host-only ``torch.profiler`` trace, else None)."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from x_multi_agent_torch.utils.bench import launch_calls
+
+    ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode(1)
+        try:
+            with (profile(activities=[ProfilerActivity.CPU]) if traced
+                  else contextlib.nullcontext()) as prof:
+                ev[0].record()
+                out = fn()
+                ev[1].record()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return (out, ev[0].elapsed_time(ev[1]),
+            sum("called a synchronizing" in str(w.message) for w in caught),
+            launch_calls(prof) if traced else None)
+
+
+def round_twins(torch, mesh, params, ccfg, words, fs, slots, db) -> tuple:
+    """Phase 10's twins on one rank (a gloo rank, or this process at NCCL
+    world size 1), from one start (this rank's blocks): ``EXCHANGE_ROUNDS``
+    rounds, each ``sharded_collab_round_desc`` then ``sharded_collab_round``
+    on its result, by the compiled programs (the first call of each
+    captures) and, in turns, by their plain twins (``compiled=False``), each
+    twin shipping on its own copy of the mesh; after every round every leaf
+    of both programs' outputs compared (:func:`tree_diff`). Per twin,
+    program and round: ms (CUDA events around the call), host syncs (the
+    sync debug mode's warnings), kernel launch calls outside graphs and
+    graph launches (a host-only ``torch.profiler`` trace of every compiled
+    call after the capture and of the plain twin's last round). Returns
+    (the record, the compiled twin's first round outputs, cloned: {"desc":
+    ..., "full": ...})."""
+    import dataclasses
+
+    from x_multi_agent_torch.parallel import mesh as pmesh
+    from x_multi_agent_torch.utils import tree
+
+    keys = ("desc", "full")
+    twins, first = {}, None
+    rec = {"rounds": EXCHANGE_ROUNDS, "bitwise_rounds": 0, "first_diff": None}
+    for mode in ("compiled", "eager"):
+        m = dataclasses.replace(mesh, shipped={})
+        c = mode == "compiled"
+        twins[mode] = {"mesh": m, "state": (fs, db),
+                       "desc": pmesh.sharded_collab_round_desc(params, ccfg, words, m, compiled=c),
+                       "full": pmesh.sharded_collab_round(params, ccfg, m, compiled=c)}
+        rec[mode] = {key: {"ms": [], "syncs": [], "calls": []} for key in keys}
+    for k in range(EXCHANGE_ROUNDS):
+        outs = {}
+        for mode, tw in twins.items():
+            # every replay of the compiled twin, the plain twin's last round
+            traced = (mode == "compiled" and k > 0) or k == EXCHANGE_ROUNDS - 1
+            f, d = tw["state"]
+            for key in keys:
+                r = rec[mode][key]
+                out, ms, syncs, calls = watched_call(
+                    torch, (lambda: tw["desc"](f, slots, d)) if key == "desc"
+                    else (lambda: tw["full"](f)), traced)
+                r["ms"].append(ms)
+                r["syncs"].append(syncs)
+                r["calls"].append(calls)
+                outs[mode, key] = out
+                f, d = (out[0], out[1]) if key == "desc" else (out[0], d)
+            tw["state"] = (f, d)
+        diffs = {key: tree_diff(torch, outs["compiled", key], outs["eager", key], f"{key}[{k}]")
+                 for key in keys}
+        if all(x["bitwise"] for x in diffs.values()):
+            rec["bitwise_rounds"] += 1
+        elif rec["first_diff"] is None:
+            rec["first_diff"] = diffs
+        if k == 0:
+            first = {key: tree.map_leaves(torch.clone, outs["compiled", key]) for key in keys}
+    for mode, tw in twins.items():
+        for key in keys:
+            r = rec[mode][key]
+            steady = r["ms"][1:] if mode == "compiled" else r["ms"]
+            r["ms_steady"], r["ms_all"] = sum(steady) / len(steady), sum(r["ms"]) / len(r["ms"])
+            r["syncs_per_round"] = sum(r["syncs"][-len(steady):]) / len(steady)
+            calls = [c for c in r["calls"][-len(steady):] if c is not None]
+            r["launch_calls"] = sum(c[0] for c in calls) / len(calls)
+            r["launch_calls_max"] = max(c[0] for c in calls)
+            r["graph_launches"] = sum(c[1] for c in calls) / len(calls)
+            if mode == "compiled":
+                g = tw[key].graphs
+                r.update(captured=g.captured, capture_s=g.capture_s, pool_bytes=g.pool_bytes)
+        rec[mode]["shipped"] = dict(tw["mesh"].shipped)
+    return rec, first
 
 
 def tree_diff(torch, got, ref, path="out") -> dict:
@@ -1005,12 +1124,13 @@ def tree_diff(torch, got, ref, path="out") -> dict:
 
 def run_exchange(torch, params, words, device) -> dict:
     """Phase 10: the multi-rank exchange on the card. 10a: ``N_RANKS``
-    gloo ranks on the one card run phase 7's fleet in blocks
-    (:func:`exchange_rank`), and the single-process rounds on their
+    gloo ranks on the one card run phase 7's fleet in blocks and the round
+    twins (:func:`exchange_rank`); the single-process rounds on their
     gathered pre-round states, with the same keyed draws, are held against
-    theirs; 10b: the sharded rounds in this process at NCCL world size 1
-    against the single-process rounds, bit for bit; 10c: the dry run on
-    ``N_RANKS`` gloo ranks of 2 agents. Returns the record."""
+    the compiled twins' first rounds; 10b: the twins in this process at
+    NCCL world size 1 on the gathered states (:func:`round_twins`), the
+    compiled first rounds bit for bit the single-process rounds; 10c: the
+    dry run on ``N_RANKS`` gloo ranks of 2 agents. Returns the record."""
     import shutil
     import tempfile
 
@@ -1024,7 +1144,8 @@ def run_exchange(torch, params, words, device) -> dict:
         ranks = pmesh.spawn_agents(exchange_rank, N_RANKS, "gloo", f"file://{tmp}/gloo",
                                    (N_AGENTS, words.cpu()), timeout_s=300.0)
         rec = {"ranks_s": time.perf_counter() - t0, "ranks": [
-            {k: r[k] for k in ("launches", "applied", "shipped", "ms")} for r in ranks]}
+            {k: r[k] for k in ("launches", "kernels_read", "applied", "twins", "seconds")}
+            for r in ranks]}
 
         def gathered(key):
             return tree.map_leaves(lambda x: x.to(device), tree.cat([r[key] for r in ranks]))
@@ -1040,18 +1161,107 @@ def run_exchange(torch, params, words, device) -> dict:
         rec["finite"] = all(bool(torch.isfinite(x.cov).all())
                             for x in (fs, got["desc"][0], got["full"][0]))
 
+        t1 = time.perf_counter()
         mesh = pmesh.make_agent_mesh("nccl", f"file://{tmp}/nccl", 0, 1, device)
         try:
-            nccl = dryrun.sharded_rounds(mesh, params, fs, ccfg, ccfg, words, slots, db)
+            rec["nccl_twins"], nccl = round_twins(torch, mesh, params, ccfg, words, fs, slots, db)
             torch.cuda.synchronize()
         finally:
             torch.distributed.destroy_process_group()
         rec["nccl"] = {key: tree_diff(torch, nccl[key], ref[key], key) for key in nccl}
+        rec["nccl_s"] = time.perf_counter() - t1
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    t1 = time.perf_counter()
     rec["dryrun"] = dryrun.dryrun_multichip(N_RANKS, "gloo", 2, device="cuda")
+    rec["dryrun_s"] = time.perf_counter() - t1
     rec["seconds"] = time.perf_counter() - t0
     return rec
+
+
+def print_round_twins(label: str, tw: dict, card) -> None:
+    """Phase 10's lines for one rank's :func:`round_twins` record."""
+    for key, name in (("desc", "descriptor round"), ("full", "full-map round")):
+        c, e = tw["compiled"][key], tw["eager"][key]
+        print(f"phase 10 {label} {name}: ms per round compiled {c['ms_steady']:.3f} over the "
+              f"{tw['rounds'] - 1} replays ({c['ms_all']:.3f} over all {tw['rounds']} rounds), "
+              f"eager {e['ms_steady']:.3f} (eager / compiled "
+              f"{e['ms_steady'] / c['ms_steady']:.2f}); kernel launch calls outside graphs per "
+              f"round compiled {c['launch_calls']:.1f} (at most {c['launch_calls_max']}), eager "
+              f"{e['launch_calls']:.1f} (its last round); graph launches per round "
+              f"{c['graph_launches']:.1f}; host syncs per round compiled "
+              f"{c['syncs_per_round']:.2f}, eager {e['syncs_per_round']:.2f}; {c['captured']} "
+              f"graphs captured in {c['capture_s']:.3f} s, pool {c['pool_bytes']} bytes ({card})")
+    print(f"phase 10 {label}: bit for bit after {tw['bitwise_rounds']} of {tw['rounds']} rounds "
+          f"(first difference {json.dumps(tw['first_diff'])}); bytes shipped compiled "
+          f"{tw['compiled']['shipped']}, eager {tw['eager']['shipped']}")
+
+
+def check_round_twins(label: str, tw: dict, backend: str) -> None:
+    """Phase 10's checks on one :func:`round_twins` record: every round bit
+    for bit, the twins' bytes equal; per compiled round (after its capture)
+    one graph launch with NCCL, no host sync and fewer than 10 kernel
+    launch calls outside it; with gloo a graph per segment (full-map 2,
+    descriptor 3)."""
+    head = f"phase 10 {label}"
+    if tw["bitwise_rounds"] != tw["rounds"]:
+        raise AssertionError(f"{head}: compiled differs from eager: {tw['first_diff']}")
+    if tw["compiled"]["shipped"] != tw["eager"]["shipped"]:
+        raise AssertionError(f"{head}: the twins shipped {tw['compiled']['shipped']} and "
+                             f"{tw['eager']['shipped']}")
+    for key, segments in (("desc", 3), ("full", 2)):
+        c = tw["compiled"][key]
+        want = 1 if backend == "nccl" else segments
+        if c["graph_launches"] != want:
+            raise AssertionError(f"{head} {key}: {c['graph_launches']} graph launches per round, "
+                                 f"not {want}")
+        if backend == "nccl" and (c["syncs_per_round"] != 0 or c["launch_calls_max"] >= 10):
+            raise AssertionError(f"{head} {key}: {c['syncs_per_round']} host syncs, "
+                                 f"{c['launch_calls_max']} launch calls outside graphs per round")
+
+
+def check_exchange(ex, counts, card) -> None:
+    """Phase 10's prints and checks on the record of :func:`run_exchange`;
+    the ranks' K1/K2 launches add to ``counts``' totals."""
+    for i, r in enumerate(ex["ranks"]):
+        for name in counts.total:
+            counts.total[name] += r["launches"][name]
+        print(f"exchange rank {i}: {N_AGENTS // N_RANKS} agents x {N_RC} frames through "
+              f"CompiledFrameStep, updates applied {r['applied']}/{N_AGENTS // N_RANKS * N_RC}; "
+              f"launches K1 {r['launches']['fast']} K2 {r['launches']['lk']} (read from the "
+              f"graphs' kernel nodes: {r['kernels_read']}); {r['seconds']['drive']:.2f} s to render "
+              f"and drive the frames, {r['seconds']['twins']:.2f} s for the twins ({card})")
+        print_round_twins(f"gloo rank {i}", r["twins"], card)
+    print_round_twins("NCCL world size 1", ex["nccl_twins"], card)
+    print(f"exchange: {N_RANKS} gloo ranks on one card, {ex['ranks_s']:.2f} s for the ranks; "
+          f"hits {ex['hits']}, matches fused {ex['desc_fused']} (descriptor round) and "
+          f"{ex['full_fused']} (full-map round); single-process rounds {ex['single_ms']:.3f} ms; "
+          f"compiled first rounds against them: gloo {json.dumps(ex['gloo'])}; NCCL world size 1 "
+          f"{json.dumps(ex['nccl'])} ({card})")
+    dry = ex["dryrun"]
+    print(f"exchange dry run: {dry['agents']} agents on {dry['ranks']} gloo ranks: fused "
+          f"{dry['matches_fused']} + {dry['desc_fused']}, hits {dry['hits']}, bytes gated "
+          f"{dry['bytes_gated']} vs full {dry['bytes_full']}, shipped {dry['shipped']}, checks "
+          f"{dry['checks']} ({card})")
+    print(f"phase 10: {ex['seconds']:.2f} s wall: the ranks {ex['ranks_s']:.2f} s, NCCL "
+          f"{ex['nccl_s']:.2f} s, the dry run {ex['dryrun_s']:.2f} s ({card})")
+    applied = sum(r["applied"] for r in ex["ranks"])
+    if applied < 0.9 * N_AGENTS * N_RC or not ex["finite"]:
+        raise AssertionError(f"exchange: {applied} updates applied, covariance finite {ex['finite']}")
+    if any(r["launches"]["fast"] < 1 or r["launches"]["lk"] < 3 * N_RC or not r["kernels_read"]
+           for r in ex["ranks"]):
+        raise AssertionError(f"exchange: a rank missed a kernel: {ex['ranks']}")
+    if ex["hits"] < 1 or ex["desc_fused"] < 1 or ex["full_fused"] < 1:
+        raise AssertionError("exchange: no hit or no fused match")
+    for key, d in ex["gloo"].items():
+        if d["int_differ"] or not d["worst_rel"] <= 1e-4:
+            raise AssertionError(f"exchange: the {key} round on the ranks differs: {d}")
+    for key, d in ex["nccl"].items():
+        if not d["bitwise"]:
+            raise AssertionError(f"exchange: the {key} round at NCCL world size 1 differs: {d}")
+    for i, r in enumerate(ex["ranks"]):
+        check_round_twins(f"gloo rank {i}", r["twins"], "gloo")
+    check_round_twins("NCCL world size 1", ex["nccl_twins"], "nccl")
 
 
 def run_ate_report(torch, dev) -> dict:
@@ -1810,12 +2020,6 @@ def run_twins(torch, name, make, frame, n, agents, counts) -> dict:
     of kernels would be slow). Means over the frames in which the compiled
     run captured no graph (``steady``). Returns the record; ``vs`` holds the
     compiled facades (or programs)."""
-    import warnings
-
-    from torch.profiler import ProfilerActivity, profile
-
-    from x_multi_agent_torch.utils.bench import launch_calls
-
     t0 = time.perf_counter()
     runs = {mode: make(mode == "compiled") for mode in ("compiled", "eager")}
     recs = {mode: {} for mode in runs}
@@ -1835,22 +2039,10 @@ def run_twins(torch, name, make, frame, n, agents, counts) -> dict:
             rm = r[mode]
             traced = mode == "compiled" or k == n - 1
             counts.start()
-            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                torch.cuda.set_sync_debug_mode(1)
-                try:
-                    with (profile(activities=[ProfilerActivity.CPU]) if traced
-                          else contextlib.nullcontext()) as prof:
-                        ev[0].record()
-                        frame(vs, k, recs[mode])
-                        ev[1].record()
-                finally:
-                    torch.cuda.set_sync_debug_mode(0)
-            torch.cuda.synchronize()
-            rm["ms"].append(ev[0].elapsed_time(ev[1]))
-            rm["syncs"].append(sum("called a synchronizing" in str(w.message) for w in caught))
-            rm["calls"].append(launch_calls(prof) if traced else None)
+            _, ms, syncs, calls = watched_call(torch, lambda: frame(vs, k, recs[mode]), traced)
+            rm["ms"].append(ms)
+            rm["syncs"].append(syncs)
+            rm["calls"].append(calls)
             for key, c in counts.read().items():
                 rm["launches"][key] += c
         if sum(g.captured for g in graphs("compiled")) == captured:
@@ -2251,37 +2443,7 @@ def main() -> int:
 
     # ---- 10. the multi-rank exchange -------------------------------------------
     ex = run_exchange(torch, params, words, dev)
-    for i, r in enumerate(ex["ranks"]):
-        for name in counts.total:
-            counts.total[name] += r["launches"][name]
-        print(f"exchange rank {i}: {N_AGENTS // N_RANKS} agents x {N_RC} frames, updates applied "
-              f"{r['applied']}/{N_AGENTS // N_RANKS * N_RC}; descriptor round "
-              f"{r['ms']['desc']:.3f} ms, full-map round {r['ms']['full']:.3f} ms; bytes shipped "
-              f"{r['shipped']}; launches K1 {r['launches']['fast']} K2 {r['launches']['lk']} ({card})")
-    print(f"exchange: {N_RANKS} gloo ranks on one card, {ex['ranks_s']:.2f} s for the ranks; "
-          f"hits {ex['hits']}, matches fused {ex['desc_fused']} (descriptor round) and "
-          f"{ex['full_fused']} (full-map round); single-process rounds {ex['single_ms']:.3f} ms; "
-          f"against them: gloo {json.dumps(ex['gloo'])}; NCCL world size 1 "
-          f"{json.dumps(ex['nccl'])} ({card})")
-    dry = ex["dryrun"]
-    print(f"exchange dry run: {dry['agents']} agents on {dry['ranks']} gloo ranks: fused "
-          f"{dry['matches_fused']} + {dry['desc_fused']}, hits {dry['hits']}, bytes gated "
-          f"{dry['bytes_gated']} vs full {dry['bytes_full']}, shipped {dry['shipped']}, checks "
-          f"{dry['checks']} ({card})")
-    print(f"phase 10: {ex['seconds']:.2f} s wall ({card})")
-    applied = sum(r["applied"] for r in ex["ranks"])
-    if applied < 0.9 * N_AGENTS * N_RC or not ex["finite"]:
-        raise AssertionError(f"exchange: {applied} updates applied, covariance finite {ex['finite']}")
-    if any(r["launches"]["fast"] < 1 or r["launches"]["lk"] < 3 * N_RC for r in ex["ranks"]):
-        raise AssertionError(f"exchange: a rank missed a kernel: {ex['ranks']}")
-    if ex["hits"] < 1 or ex["desc_fused"] < 1 or ex["full_fused"] < 1:
-        raise AssertionError("exchange: no hit or no fused match")
-    for key, d in ex["gloo"].items():
-        if d["int_differ"] or not d["worst_rel"] <= 1e-4:
-            raise AssertionError(f"exchange: the {key} round on the ranks differs: {d}")
-    for key, d in ex["nccl"].items():
-        if not d["bitwise"]:
-            raise AssertionError(f"exchange: the {key} round at NCCL world size 1 differs: {d}")
+    check_exchange(ex, counts, card)
     _no_jax()
 
     # ---- 11. the dataset-replay ATE report -------------------------------------

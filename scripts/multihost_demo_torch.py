@@ -2,8 +2,10 @@
 """Multi-process exchange demo of the port (counterpart of the reference's
 ``scripts/multihost_demo.py``): agents in blocks over gloo ranks, one
 process per rank, a shared scene, and every frame the step, a keyframe
-insert and the REQUEST_COMM descriptor round across the ranks
-(``x_multi_agent_torch/parallel/multihost.py``).
+insert and the REQUEST_COMM descriptor round across the ranks, both
+compiled as the reference's are jitted (the step one CUDA graph, the round
+three graphs around its two host-staged gloo collectives;
+``x_multi_agent_torch/parallel/multihost.py``).
 
     python3 scripts/multihost_demo_torch.py                  # 2 ranks x 4 agents on the card
     python3 scripts/multihost_demo_torch.py --device cpu     # the ranks on CPU tensors

@@ -1,9 +1,10 @@
 """PyTorch port vs the JAX reference: the multi-rank agent exchange
 (``parallel/mesh.py``) and its dry run (``parallel/dryrun.py``).
 
-The port's rounds run on 2 gloo ranks spawned on the CPU (a ``file://``
-init in ``tmp_path``, one thread per rank, each test under its own time
-limit through ``mesh.spawn_agents``); the JAX side runs on the conftest's
+The port's rounds (compiled, their default; ``test_torch_mesh_graph.py``
+holds them against their plain twins) run on 2 gloo ranks spawned on the
+CPU (a ``file://`` init in ``tmp_path``, one thread per rank, each test
+under its own time limit through ``mesh.spawn_agents``); the JAX side runs on the conftest's
 virtual CPU devices in float64, the port in float64. The collective layout
 (the all_to_all's split and concat axes, requester and responder
 orientation, top-K gather indices, the block offset of a rank's agents) is
@@ -11,7 +12,6 @@ what a smoke test that only counts hits cannot catch, so every round is held
 equal to a reference: integer and boolean leaves exactly, float leaves
 within the stated share of each leaf's max.
 """
-import dataclasses
 import time
 
 import jax
@@ -20,13 +20,10 @@ import numpy as np
 import pytest
 import torch
 
-from test_collab import CCFG, PARAMS, run_agent
-from test_mesh_desc import _with_descriptors
-from torch_helpers import assert_tree_close, np_tree, port_params, sim_matches, t, to_port
-from x_multi_agent_tpu.parallel import collab as jcollab
+from test_collab import CCFG, PARAMS
+from torch_helpers import (assert_tree_close, mesh_desc_inputs, mesh_four_agents, np_tree,
+                           port_params, sim_matches, t, to_port)
 from x_multi_agent_tpu.parallel import mesh as jmesh
-from x_multi_agent_tpu.place_recognition import database as jdb
-from x_multi_agent_tpu.place_recognition.vocabulary import train_kmajority
 from x_multi_agent_tpu.utils.sim import make_circle_sim
 from x_multi_agent_tpu.vio import pipeline as jpipe
 from x_multi_agent_tpu.vio import track_manager as jtm
@@ -34,7 +31,6 @@ from x_multi_agent_tpu.vio import vio as jvio
 from x_multi_agent_torch.parallel import collab as tcollab
 from x_multi_agent_torch.parallel import dryrun
 from x_multi_agent_torch.parallel import mesh as tmesh
-from x_multi_agent_torch.place_recognition import database as tdb
 from x_multi_agent_torch.utils import tree
 from x_multi_agent_torch.vio import pipeline as tpipe
 
@@ -59,24 +55,8 @@ def _stack(*xs):
 @pytest.fixture(scope="module")
 def desc_inputs():
     """The inputs of the reference's mesh-descriptor test
-    (tests/test_mesh_desc.py): two 3 s agents with per-landmark descriptors,
-    8 words, every agent's ring holding its own snapshot."""
-    rng = np.random.default_rng(5)
-    desc_table = rng.integers(0, 256, (40, 32)).astype(np.uint8)
-    words = train_kmajority(desc_table, 8, 4).words
-    va, _ = run_agent((0.0, 0.0, 0.0), 1e-3)
-    vb, _ = run_agent((0.25, 0.0, 0.0), 0.5)
-    slots = _stack(_with_descriptors(va.slots, desc_table), _with_descriptors(vb.slots, desc_table))
-    fs = _stack(va.fs, vb.fs)
-    dd = jdb.DbDims(n_keyframes=3, n_words=int(words.shape[0]), max_agents=2)
-
-    def build_db(f, s):
-        proto = jcollab.extract_payload_desc(PARAMS, f, s)
-        db = jdb.KeyframeDB.zero(dd, jax.tree.map(jnp.zeros_like, proto))
-        return jdb.add_keyframe(dd, db, proto, jnp.asarray(words))
-
-    db = jax.vmap(build_db)(fs, slots)
-    return fs, slots, db, words
+    (``torch_helpers.mesh_desc_inputs``)."""
+    return mesh_desc_inputs()
 
 
 def test_sharded_collab_round_matches_jax(tmp_path, desc_inputs):
@@ -116,22 +96,8 @@ def test_sharded_collab_round_desc_matches_jax(tmp_path, desc_inputs):
 
 @pytest.fixture(scope="module")
 def four_agents(desc_inputs):
-    """Four agents (two per rank) with descriptors: the two reference
-    agents and their copies a few cm off, each ring holding its own
-    snapshot and its next peer's."""
-    fs, slots, _, words = desc_inputs
-    rows = torch.tensor([0, 1, 0, 1])
-    fs4 = tree.map_leaves(lambda x: x[rows], to_port(fs))
-    slots4 = tree.map_leaves(lambda x: x[rows], to_port(slots))
-    shift = torch.tensor([0.0, 0.0, 0.03, -0.02], dtype=torch.float64)
-    fs4 = dataclasses.replace(fs4, vision=dataclasses.replace(
-        fs4.vision, p_arr=fs4.vision.p_arr + shift[:, None, None]))
-    w = t(words)
-    dd = tdb.DbDims(n_keyframes=3, n_words=int(w.shape[0]), max_agents=4)
-    own = tcollab.extract_payload_desc(TP, fs4, slots4)
-    peer = tree.map_leaves(lambda x: x[(torch.arange(4) + 1) % 4], own)
-    db = tdb.add_keyframe(dd, tdb.add_keyframe(dd, tdb.KeyframeDB.zero(dd, own), own, w), peer, w)
-    return fs4, slots4, db, w
+    """Four agents, two per rank (``torch_helpers.mesh_four_agents``)."""
+    return mesh_four_agents(desc_inputs)
 
 
 @pytest.mark.parametrize("top_k", [0, 2])

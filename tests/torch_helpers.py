@@ -309,3 +309,61 @@ def recording(v, states):
 
     v.process_image_measurement = process_image_measurement
     return v
+
+
+def mesh_desc_inputs():
+    """The inputs of the reference's mesh-descriptor test
+    (tests/test_mesh_desc.py), as the reference's JAX objects: two 3 s
+    agents with per-landmark descriptors, 8 words, every agent's ring
+    holding its own snapshot. Returns (fs, slots, db, words)."""
+    from test_collab import PARAMS, run_agent
+    from test_mesh_desc import _with_descriptors
+    from x_multi_agent_tpu.parallel import collab as jcollab
+    from x_multi_agent_tpu.place_recognition import database as jdb
+    from x_multi_agent_tpu.place_recognition.vocabulary import train_kmajority
+
+    rng = np.random.default_rng(5)
+    desc_table = rng.integers(0, 256, (40, 32)).astype(np.uint8)
+    words = train_kmajority(desc_table, 8, 4).words
+    va, _ = run_agent((0.0, 0.0, 0.0), 1e-3)
+    vb, _ = run_agent((0.25, 0.0, 0.0), 0.5)
+
+    def pair(*xs):
+        return jax.tree.map(lambda *v: jnp.stack(v), *xs)
+
+    slots = pair(_with_descriptors(va.slots, desc_table), _with_descriptors(vb.slots, desc_table))
+    fs = pair(va.fs, vb.fs)
+    dd = jdb.DbDims(n_keyframes=3, n_words=int(words.shape[0]), max_agents=2)
+
+    def build_db(f, s):
+        proto = jcollab.extract_payload_desc(PARAMS, f, s)
+        db = jdb.KeyframeDB.zero(dd, jax.tree.map(jnp.zeros_like, proto))
+        return jdb.add_keyframe(dd, db, proto, jnp.asarray(words))
+
+    return fs, slots, jax.vmap(build_db)(fs, slots), words
+
+
+def mesh_four_agents(desc_inputs):
+    """Four agents (two per rank of 2) with descriptors, on the port's side:
+    the two agents of :func:`mesh_desc_inputs` and their copies a few cm
+    off, each ring holding its own snapshot and its next peer's. Returns
+    (fs, slots, db, words) on the CPU in float64."""
+    from test_collab import PARAMS
+    from x_multi_agent_torch.parallel import collab as tcollab
+    from x_multi_agent_torch.place_recognition import database as tdb
+    from x_multi_agent_torch.utils import tree
+
+    tp = port_params(PARAMS)
+    fs, slots, _, words = desc_inputs
+    rows = torch.tensor([0, 1, 0, 1])
+    fs4 = tree.map_leaves(lambda x: x[rows], to_port(fs))
+    slots4 = tree.map_leaves(lambda x: x[rows], to_port(slots))
+    shift = torch.tensor([0.0, 0.0, 0.03, -0.02], dtype=torch.float64)
+    fs4 = dataclasses.replace(fs4, vision=dataclasses.replace(
+        fs4.vision, p_arr=fs4.vision.p_arr + shift[:, None, None]))
+    w = t(words)
+    dd = tdb.DbDims(n_keyframes=3, n_words=int(w.shape[0]), max_agents=4)
+    own = tcollab.extract_payload_desc(tp, fs4, slots4)
+    peer = tree.map_leaves(lambda x: x[(torch.arange(4) + 1) % 4], own)
+    db = tdb.add_keyframe(dd, tdb.add_keyframe(dd, tdb.KeyframeDB.zero(dd, own), own, w), peer, w)
+    return fs4, slots4, db, w

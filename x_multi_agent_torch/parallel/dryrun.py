@@ -58,7 +58,8 @@ def sharded_rounds(mesh, params, fs, ccfg=None, dccfg=None, words=None, slots=No
                    db=None) -> dict:
     """:func:`single_rounds` over the ranks, on this rank's blocks (fs,
     slots, db, leaves (blk, ...)): ``sharded_collab_round_desc``, then
-    ``sharded_collab_round``. Returns the block outputs, keyed as
+    ``sharded_collab_round``, both compiled (the outputs are the programs'
+    buffers). Returns the block outputs, keyed as
     :func:`single_rounds` keys them."""
     out = {}
     if dccfg is not None:
@@ -122,7 +123,8 @@ DCCFG = CCFG._replace(desc_ratio_thr=0.8, desc_abs_thr=40.0, pr_score_thr=0.15,
 def _dryrun_rank(mesh, n_agents: int):
     """Rank function of :func:`dryrun_multichip`: this rank's block of the
     fleet through one ``sharded_step`` per camera frame, the full-map round
-    and the descriptor round; rank 0 returns the fleet's outputs."""
+    and the descriptor round (all compiled); rank 0 returns the fleet's
+    outputs."""
     params = configs.flagship_params(small=True)
     dev, dt = mesh.device, params.tdtype
     sl = mesh.block(n_agents)

@@ -18,7 +18,11 @@ exchange rounds are collectives:
 Each collective ships one flat ``uint8`` buffer (the leaves of its
 containers packed byte for byte). With gloo the buffer is staged through
 host memory, the radio link's analog; with NCCL it stays on the card, and
-NCCL refuses two ranks on one device. The rounds equal the single-process
+NCCL refuses two ranks on one device. As the reference jits its rounds,
+both are compiled by default (:class:`ShardedRound`: with NCCL one CUDA
+graph per call, its collectives inside; with gloo a graph per segment
+between the host-staged collectives); ``compiled=False`` gives the plain
+round, which runs the same segments op by op. The rounds equal the single-process
 rounds of ``parallel.collab`` on the same agents: every row of every
 computation depends on its own agent alone, and the RANSAC draws are keyed
 on each agent's state (``ops.ransac.KeyedSampler``).
@@ -116,9 +120,75 @@ def _unpack(buf: torch.Tensor, template):
     return tree.unflatten(template, out)
 
 
-def _send(mesh: AgentMesh, buf: torch.Tensor) -> torch.Tensor:
-    # gloo: the buffer crosses through host memory
-    return buf.cpu() if mesh.backend == "gloo" else buf
+def _meta(obj):
+    """``obj``'s structure, shapes and dtypes, its tensor leaves on the meta
+    device: a template for :func:`_unpack` that holds no memory."""
+    return tree.map_leaves(lambda x: torch.empty(x.shape, dtype=x.dtype, device="meta"), obj)
+
+
+def _put(kind: str, obj, w: int):
+    """A collective's flat send buffer and the template of one rank's piece
+    of what arrives. ``all_gather`` ships the block ``obj`` (leaves (blk,
+    ...)) to every rank; ``all_to_all`` ships columns ``q * blk .. q * blk +
+    blk - 1`` of the grid ``obj`` (leaves (blk, A, ...)) to rank q, the
+    pieces packed in rank order."""
+    if kind == "all_gather":
+        return _pack(obj), _meta(obj)
+    blk = tree.leaves(obj)[0].shape[0]
+    chunks = [tree.map_leaves(lambda x, q=q: x[:, q * blk:(q + 1) * blk], obj) for q in range(w)]
+    return torch.cat([_pack(c) for c in chunks]), _meta(chunks[0])
+
+
+def _recv_numel(kind: str, send: torch.Tensor, w: int) -> int:
+    return send.numel() * w if kind == "all_gather" else send.numel()
+
+
+def _shipped(kind: str, send: torch.Tensor, w: int) -> int:
+    """The bytes this rank ships to the other ranks."""
+    piece = send.numel() if kind == "all_gather" else send.numel() // w
+    return piece * (w - 1)
+
+
+def _got(recv: torch.Tensor, template, w: int):
+    """What arrived: the w ranks' pieces of ``recv`` (views), each unpacked
+    into ``template`` and stacked along the agent axis in rank order."""
+    n = recv.numel() // w
+    return tree.cat([_unpack(recv[p * n:(p + 1) * n], template) for p in range(w)])
+
+
+def _pinned(n: int) -> torch.Tensor:
+    return torch.empty(n, dtype=torch.uint8, pin_memory=True)
+
+
+def _exchange(mesh: AgentMesh, kind: str, send: torch.Tensor, recv: torch.Tensor,
+              host=None) -> None:
+    """The collective on flat ``uint8`` buffers: ``all_gather`` (``send``
+    (n,) -> ``recv`` (w * n,), rank order) or ``all_to_all`` (piece q of
+    ``send`` to rank q, rank p's piece into piece p of ``recv``). With gloo
+    a card's buffers cross through host memory (the radio link's analog):
+    a blocking copy into the pinned buffers ``host`` (send, recv; fresh
+    ones when None), the one host sync, then the collective and an
+    asynchronous copy back. Every later gloo write into ``host`` follows
+    the next blocking copy on the same stream, which waits for that copy
+    back."""
+    op = dist.all_gather_into_tensor if kind == "all_gather" else dist.all_to_all_single
+    if mesh.backend == "gloo" and send.is_cuda:
+        h_send, h_recv = host or (_pinned(send.numel()), _pinned(recv.numel()))
+        h_send.copy_(send)
+        op(h_recv, h_send, group=mesh.group)
+        recv.copy_(h_recv, non_blocking=True)
+    else:
+        op(recv, send, group=mesh.group)
+
+
+def _collective(mesh: AgentMesh, kind: str, obj):
+    """``obj`` through one collective, on fresh buffers: (what arrived, the
+    bytes this rank shipped to the others)."""
+    w = mesh.world_size
+    send, template = _put(kind, obj, w)
+    recv = send.new_empty(_recv_numel(kind, send, w))
+    _exchange(mesh, kind, send, recv)
+    return _got(recv, template, w), _shipped(kind, send, w)
 
 
 def _count(mesh: AgentMesh, name: str, nbytes: int) -> int:
@@ -130,30 +200,8 @@ def all_gather(mesh: AgentMesh, name: str, block):
     """Every rank's ``block`` (leaves (blk, ...)) concatenated along the
     agent axis in rank order, and the bytes this rank shipped (its block
     to each other rank). Counted under ``mesh.shipped[name]``."""
-    buf = _send(mesh, _pack(block))
-    out = [torch.empty_like(buf) for _ in range(mesh.world_size)]
-    dist.all_gather(out, buf, group=mesh.group)
-    nbytes = _count(mesh, name, buf.numel() * (mesh.world_size - 1))
-    return tree.cat([_unpack(b.to(mesh.device), block) for b in out]), nbytes
-
-
-def all_to_all(mesh: AgentMesh, name: str, grid):
-    """Transpose a (blk senders, A receivers, ...) grid across the ranks
-    into (A senders, blk receivers, ...): columns ``q * blk .. q * blk +
-    blk - 1`` go to rank q, and rank p's rows arrive as senders ``p * blk ..``.
-    Returns (the grid, the bytes this rank shipped to other ranks), counted
-    under ``mesh.shipped[name]``."""
-    w = mesh.world_size
-    blk = tree.leaves(grid)[0].shape[0]
-    chunks = [tree.map_leaves(lambda x, q=q: x[:, q * blk:(q + 1) * blk], grid) for q in range(w)]
-    bufs = [_pack(c) for c in chunks]
-    send = _send(mesh, torch.cat(bufs))
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=mesh.group)
-    n = bufs[0].numel()
-    nbytes = _count(mesh, name, n * (w - 1))
-    parts = [_unpack(recv[p * n:(p + 1) * n].to(mesh.device), chunks[0]) for p in range(w)]
-    return tree.cat(parts), nbytes
+    got, nbytes = _collective(mesh, "all_gather", block)
+    return got, _count(mesh, name, nbytes)
 
 
 def gather_blocks(mesh: AgentMesh, obj):
@@ -206,32 +254,154 @@ def sharded_step(params: vio_mod.VioParams, mesh: AgentMesh):
     return agent_step_fn(params)
 
 
-def sharded_collab_round(params: vio_mod.VioParams, ccfg: collab.CollabConfig, mesh: AgentMesh):
+def _run(mesh: AgentMesh, segments, collectives, state: tuple, shipped: dict):
+    """A round's segments in order, collective i between segments i and
+    i + 1, run where they stand: the plain round, and with NCCL the body of
+    its one graph. Segment i takes (state, what collective i - 1 delivered)
+    and returns (state, what collective i ships); the last returns (state,
+    the round's other outputs). Records each collective's bytes in
+    ``shipped``. Returns (state, outputs)."""
+    got = None
+    for i, seg in enumerate(segments):
+        state, put = seg(state, got)
+        if i < len(collectives):
+            name, kind = collectives[i]
+            got, shipped[name] = _collective(mesh, kind, put)
+    return state, put
+
+
+class ShardedRound(graph.Programs):
+    """A sharded round compiled (``utils/graph.py``), the counterpart of the
+    reference's ``jax.jit`` of its ``shard_map``. Per capture key:
+
+      * NCCL: one CUDA graph of the whole round, its collectives captured
+        inside it (the eager first run creates the communicator); a call
+        makes no host sync;
+      * gloo: one graph per segment, and between two replays the collective
+        as a host step on static buffers (:func:`_exchange`: the graph's
+        send buffer copied to pinned host memory, the gloo collective, a
+        copy into the static receive buffer that the next graph reads), the
+        one host sync per collective.
+
+    The first ``n_carry`` program arguments are the carry; ``arrange`` maps
+    the public arguments to the program's. A call returns the carry buffers
+    and the graphs' outputs, valid until its next call, and adds each
+    collective's bytes (fixed by the shapes) to ``mesh.shipped``, as the
+    plain round does. A capture or replay that fails raises, naming the
+    program; nothing falls back to the plain round."""
+
+    def __init__(self, mesh: AgentMesh, name: str, segments, collectives, n_carry: int,
+                 arrange: Callable):
+        if mesh.backend not in ("nccl", "gloo"):
+            raise ValueError(f"{name}: no compiled round on backend {mesh.backend!r} "
+                             "(nccl or gloo)")
+        super().__init__(name)
+        self.mesh, self.segments, self.collectives = mesh, segments, collectives
+        self.n_carry, self.arrange = n_carry, arrange
+
+    def __call__(self, *args):
+        dev, bufs, prog = self.get(self.arrange(*args), self._build, n_carry=self.n_carry)
+        for i, g in enumerate(prog["graphs"]):
+            outs = g(dev)
+            if i < len(prog["graphs"]) - 1:
+                self._host_step(prog, i, outs[0])
+        for name, n in prog["shipped"].items():
+            _count(self.mesh, name, n)
+        return tuple(bufs[:self.n_carry]) + tuple(outs)
+
+    def _build(self, bufs, label: str) -> dict:
+        n, g, segs = self.n_carry, self.graphs, self.segments
+        prog = {"shipped": {}, "template": {}, "recv": {}, "host": {}}
+
+        def whole():
+            state, outs = _run(self.mesh, segs, self.collectives, bufs, prog["shipped"])
+            graph.write_carry(bufs[:n], state[:n], self.name)
+            return outs
+
+        def segment(i):
+            def body():
+                got = None if i == 0 else _got(prog["recv"][i - 1], prog["template"][i - 1],
+                                               self.mesh.world_size)
+                state, put = segs[i](bufs, got)
+                graph.write_carry(bufs[:n], state[:n], self.name)
+                if i == len(segs) - 1:
+                    return put
+                send, prog["template"][i] = _put(self.collectives[i][1], put,
+                                                 self.mesh.world_size)
+                return (send,)
+            return body
+
+        if self.mesh.backend == "nccl":
+            prog["graphs"] = [g.graph(label, whole)]
+        else:
+            prog["graphs"] = [g.graph(f"{label}:{i}", segment(i)) for i in range(len(segs))]
+        return prog
+
+    def _host_step(self, prog: dict, i: int, send: torch.Tensor) -> None:
+        """Collective i between graphs i and i + 1 (gloo), its static
+        receive and pinned host buffers made on its first call."""
+        name, kind = self.collectives[i]
+        w = self.mesh.world_size
+        if i not in prog["recv"]:
+            recv = prog["recv"][i] = send.new_empty(_recv_numel(kind, send, w))
+            prog["host"][i] = (_pinned(send.numel()), _pinned(recv.numel())) if send.is_cuda \
+                else None
+            prog["shipped"][name] = _shipped(kind, send, w)
+        _exchange(self.mesh, kind, send, prog["recv"][i], prog["host"][i])
+
+
+def _round(mesh: AgentMesh, name: str, segments, collectives, n_carry: int, compiled: bool,
+           arrange: Callable = lambda *args: args):
+    """The round of ``segments`` split at ``collectives`` ((name, kind) each):
+    the compiled program, or with ``compiled=False`` the plain round, which
+    runs the same segments op by op."""
+    if compiled:
+        return ShardedRound(mesh, name, segments, collectives, n_carry, arrange)
+
+    def plain(*args):
+        linalg.require_fp32_matmul(mesh.device, name)
+        shipped = {}
+        state, outs = _run(mesh, segments, collectives, arrange(*args), shipped)
+        for key, nbytes in shipped.items():
+            _count(mesh, key, nbytes)
+        return tuple(state[:n_carry]) + tuple(outs)
+
+    return plain
+
+
+def sharded_collab_round(params: vio_mod.VioParams, ccfg: collab.CollabConfig, mesh: AgentMesh,
+                         compiled: bool = True):
     """One full-map exchange round over the ranks: each rank extracts its
     block's payloads, one ``all_gather`` (collective ``"payloads"``) stacks
     all A in agent order, and each local agent fuses every peer b = 0..A-1
     in order, its own masked, as ``collab.collaborative_round`` does.
 
-    Returns ``fs_blk -> (fs_blk, n_matches (blk, A))``."""
+    Returns ``fs_blk -> (fs_blk, n_matches (blk, A))``: compiled, as the
+    reference's ``sharded_collab_round`` returns its jitted program
+    (:class:`ShardedRound`: ``fs_blk`` the carry; with gloo two graphs
+    around the host step), or with ``compiled=False`` the plain round.
+    Raises on CUDA if TF32 matmuls are on."""
 
-    def _round(fs_blk):
-        linalg.require_fp32_matmul(mesh.device, "sharded_collab_round")
+    def payloads(state, _):
+        return state, collab.extract_payload(params, state[0])
+
+    def fuse(state, payloads):
+        fs_blk, = state
         blk = fs_blk.cov.shape[0]
-        a = blk * mesh.world_size
-        payloads, _ = all_gather(mesh, "payloads", collab.extract_payload(params, fs_blk))
         my_ids = torch.arange(mesh.rank * blk, (mesh.rank + 1) * blk, device=mesh.device)
         ns = []
-        for b in range(a):
+        for b in range(blk * mesh.world_size):
             peer = tree.map_leaves(lambda x: x[b].expand((blk,) + x.shape[1:]), payloads)
             fs_blk, n = collab.fuse_with_peer(params, ccfg, fs_blk, peer, my_ids != b)
             ns.append(n)
-        return fs_blk, torch.stack(ns, dim=1)
+        return (fs_blk,), (torch.stack(ns, dim=1),)
 
-    return _round
+    return _round(mesh, "sharded_collab_round", (payloads, fuse), (("payloads", "all_gather"),),
+                  1, compiled)
 
 
 def sharded_collab_round_desc(params: vio_mod.VioParams, ccfg: collab.CollabConfig,
-                              words: torch.Tensor, mesh: AgentMesh):
+                              words: torch.Tensor, mesh: AgentMesh, compiled: bool = True):
     """Descriptor place recognition + REQUEST_COMM over the ranks, the four
     steps of the reference's mesh round:
 
@@ -251,25 +421,28 @@ def sharded_collab_round_desc(params: vio_mod.VioParams, ccfg: collab.CollabConf
 
     Returns ``(fs_blk, slots_blk, db_blk) -> (fs_blk, db_blk, hits (blk, A
     responders), n_matches (blk, K))``, equal to the rows of
-    ``collab.request_response_round`` on the same agents. Raises when A
-    exceeds the served bitmap (``DbDims.max_agents``)."""
+    ``collab.request_response_round`` on the same agents: compiled, as the
+    reference returns its jitted program (:class:`ShardedRound`: ``fs_blk``
+    and ``db_blk`` the carry, since the served bitmap threads through the
+    requesters; with gloo three graphs around the two host steps), or with
+    ``compiled=False`` the plain round. Raises when A exceeds the served
+    bitmap (``DbDims.max_agents``), and on CUDA if TF32 matmuls are on."""
+    dev = mesh.device
 
-    def _round(fs_blk, slots_blk, db_blk):
-        linalg.require_fp32_matmul(mesh.device, "sharded_collab_round_desc")
-        blk = fs_blk.cov.shape[0]
-        a = blk * mesh.world_size
+    def vlads(state, _):
+        fs_blk, db_blk, slots_blk = state
+        a = fs_blk.cov.shape[0] * mesh.world_size
         if a > db_blk.served.shape[-1]:
             raise ValueError(f"{a} agents exceed the served bitmap of {db_blk.served.shape[-1]} "
                              "(raise DbDims.max_agents)")
-        dev = mesh.device
+        return state, collab.query_vlad(words, slots_blk)  # (blk, W, 32)
+
+    def responders(state, vlads):  # vlads (A, W, 32)
+        fs_blk, db_blk, slots_blk = state
+        blk = fs_blk.cov.shape[0]
         my_ids = torch.arange(mesh.rank * blk, (mesh.rank + 1) * blk, device=dev)
-
-        # 1. the request broadcast
-        vlads, _ = all_gather(mesh, "vlads", collab.query_vlad(words, slots_blk))  # (A, W, 32)
-
-        # 2. the responders, requester by requester
         idx_cols, hit_cols, score_cols = [], [], []
-        for r in range(a):
+        for r in range(vlads.shape[0]):
             idx, found, score, db_blk = db_mod.find_candidate_scored(
                 db_blk, r, vlads[r].expand((blk,) + vlads.shape[1:]), ccfg.pr_score_thr)
             idx_cols.append(idx)
@@ -278,12 +451,13 @@ def sharded_collab_round_desc(params: vio_mod.VioParams, ccfg: collab.CollabConf
         hit_grid = torch.stack(hit_cols, 1)  # (blk responders, A requesters)
         kf_grid = tree.map_leaves(lambda x: tree.take(x, torch.stack(idx_cols, 1)), db_blk.payload)
         kf_grid = tree.where(hit_grid, kf_grid, tree.map_leaves(torch.zeros_like, kf_grid))
+        # the score-gated ship, responder -> requester
+        return (fs_blk, db_blk, slots_blk), (kf_grid, hit_grid, torch.stack(score_cols, 1))
 
-        # 3. the score-gated ship, responder -> requester
-        (kf_by_req, hit_by_req, score_by_req), _ = all_to_all(
-            mesh, "keyframes", (kf_grid, hit_grid, torch.stack(score_cols, 1)))
-
-        # 4. top-K fan-in and fusion
+    def fuse(state, got):  # got: (A responders, blk requesters, ...)
+        fs_blk, db_blk, slots_blk = state
+        kf_by_req, hit_by_req, score_by_req = got
+        blk, a = fs_blk.cov.shape[0], hit_by_req.shape[0]
         sel, sel_valid = collab.top_k_select(hit_by_req.T, score_by_req.T, ccfg.top_k_peers)
         ar = torch.arange(blk, device=dev)
         ns = []
@@ -295,9 +469,11 @@ def sharded_collab_round_desc(params: vio_mod.VioParams, ccfg: collab.CollabConf
             ns.append(n)
         hits = torch.zeros((blk, a), dtype=torch.int32, device=dev).scatter_reduce(
             1, sel.long(), sel_valid.to(torch.int32), "amax") > 0
-        return fs_blk, db_blk, hits, torch.stack(ns, dim=1)
+        return (fs_blk, db_blk, slots_blk), (hits, torch.stack(ns, dim=1))
 
-    return _round
+    return _round(mesh, "sharded_collab_round_desc", (vlads, responders, fuse),
+                  (("vlads", "all_gather"), ("keyframes", "all_to_all")), 2, compiled,
+                  lambda fs_blk, slots_blk, db_blk: (fs_blk, db_blk, slots_blk))
 
 
 # ---------------------------------------------------------------------------

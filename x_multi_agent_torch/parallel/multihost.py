@@ -2,7 +2,8 @@
 ``scripts/multihost_demo.py``): agents in blocks over ``torch.distributed``
 ranks, one process each (``mesh.spawn_agents``, gloo, a ``file://`` init),
 every camera frame a ``sharded_step``, a keyframe insert and the
-descriptor round ``sharded_collab_round_desc`` across the ranks.
+descriptor round ``sharded_collab_round_desc`` across the ranks (the step
+and the round compiled, as the reference jits them).
 
 The reference spawns one process per "host", each with K virtual XLA
 devices holding one agent each (2 hosts x 4 devices x 1 agent by default);
