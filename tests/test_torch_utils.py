@@ -26,7 +26,7 @@ from x_multi_agent_tpu.utils.sim import make_circle_sim
 from x_multi_agent_tpu.vio import pipeline as jpipe
 from x_multi_agent_tpu.vision import camera as jcam
 from x_multi_agent_torch import configs
-from x_multi_agent_torch.utils import checkpoint, config, dataio, ref_ingest, render, scene
+from x_multi_agent_torch.utils import checkpoint, config, dataio, ref_ingest, render, scene, timing
 from x_multi_agent_torch.utils.timing import Timing
 from x_multi_agent_torch.vio import pipeline as tpipe
 from x_multi_agent_torch.vio import vio as tvio
@@ -237,15 +237,15 @@ def test_timing_report():
     with Timing("off"):
         pass
     assert "off" not in Timing.report()
-    Timing.enabled = True
+    timing.enable()
     try:
         for _ in range(3):
-            with Timing("track", sync=(torch.ones(3), None)):
+            with Timing("track"):
                 sum(range(1000))
         with Timing("other"):
             pass
     finally:
-        Timing.enabled = False
+        timing.disable()
     lines = Timing.report().splitlines()
     assert lines[0].split() == ["stage", "total_ms", "calls", "ms/call"]
     track = [ln for ln in lines if ln.startswith("track ")][0].split()

@@ -129,6 +129,7 @@ def lib() -> ctypes.CDLL:
 _SIGNATURES = (
     ("xmat_fast_score_nms", 2, 4, 1),
     ("xmat_lk_level", 8, 6, 2),
+    ("xmat_stamp", 2, 2, 0),
 )
 
 

@@ -44,7 +44,7 @@ from ..device import resolve
 from ..ekf import ekf as ekf_mod
 from ..ops import linalg
 from ..place_recognition import database as db_mod
-from ..utils import graph, tree
+from ..utils import graph, timing, tree
 from ..vio import pipeline
 from ..vio import vio as vio_mod
 from . import collab
@@ -231,6 +231,7 @@ def agent_step(params: vio_mod.VioParams):
 
     def step(fs, slots, imu_times, imu_seqs, imu_w, imu_a, meas_time,
              meas: pipeline.FrameMeasurement):
+        timing.stamp("imu", fs.cov)
         fs = ekf_mod.process_imu_batch_impl(params.ekf_params, fs, imu_times, imu_seqs, imu_w,
                                             imu_a)
         return vio_mod.process_matches(params, fs, slots, meas_time, meas)
@@ -244,7 +245,7 @@ def agent_step_fn(params: vio_mod.VioParams) -> graph.Compiled:
     slots) the carry (``utils/graph.py``: the returned state is the
     program's buffers, valid until its next call). Raises on CUDA if TF32
     matmuls are on."""
-    return graph.compiled(agent_step(params), "agent_step", n_carry=2)
+    return graph.compiled(agent_step(params), "agent_step", n_carry=2, span="filter")
 
 
 def sharded_step(params: vio_mod.VioParams, mesh: AgentMesh):

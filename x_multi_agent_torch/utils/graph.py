@@ -39,6 +39,11 @@ Where libcuda cannot name a node's function, the capture's count is added
 and ``Graphs.kernels_read`` is false. The eager first run counts as it
 launched.
 
+With the recorder on (``utils/timing.py``), a call records the host spans
+``dispatch`` (keying and staging) and ``launch`` (the replay), and a graph
+captured then holds a device stamp as its first and last node; a graph
+captured with the recorder off holds none.
+
 The functions must be capture-safe: no host read of a device value
 (``.item()``, ``bool(t)``), no tensor built from host data, no operation
 whose output shape depends on the data (``nonzero``, boolean-mask indexing),
@@ -58,7 +63,7 @@ import torch
 
 from .. import native
 from ..ops import linalg
-from . import tree
+from . import timing, tree
 
 
 def spec(obj):
@@ -189,14 +194,15 @@ class _Graph:
         self.nodes = None
 
     def __call__(self, device: torch.device):
-        if device.type != "cuda":
-            return self.fn()
-        if self.graph is None:
-            return self._capture()
-        try:
-            self.graph.replay()
-        except RuntimeError as e:
-            raise RuntimeError(f"{self.name}: CUDA graph replay failed: {e}") from e
+        with timing.span("launch", self.name):
+            if device.type != "cuda":
+                return self._stamped(device)
+            if self.graph is None:
+                return self._capture(device)
+            try:
+                self.graph.replay()
+            except RuntimeError as e:
+                raise RuntimeError(f"{self.name}: CUDA graph replay failed: {e}") from e
         for k, n in zip(native.KERNELS, self.launches):
             k.launches += n
         own = self.owner
@@ -204,7 +210,15 @@ class _Graph:
                               else own.replayed_nodes + self.nodes)
         return self.out
 
-    def _capture(self):
+    def _stamped(self, device: torch.device):
+        """``fn()`` between the recorder's first and last stamp of the graph
+        (none while the recorder is off)."""
+        timing.bound(self.name, False, device)
+        out = self.fn()
+        timing.bound(self.name, True, device)
+        return out
+
+    def _capture(self, device: torch.device):
         own = self.owner
         if own.pool is None:
             own.pool = torch.cuda.graph_pool_handle()
@@ -212,7 +226,7 @@ class _Graph:
         cur, side = torch.cuda.current_stream(), own.stream
         side.wait_stream(cur)
         with torch.cuda.stream(side):
-            first = self.fn()  # the eager run: this call's result, its launches counted
+            first = self._stamped(device)  # the eager run: this call's result, its launches counted
         cur.wait_stream(side)
         torch.cuda.synchronize()
         # a program dropped in a reference cycle frees its graphs when the
@@ -228,7 +242,7 @@ class _Graph:
         gc.disable()
         try:
             with torch.cuda.graph(g, pool=own.pool, stream=side):
-                out = self.fn()
+                out = self._stamped(device)
             g.instantiate()
         except Exception as e:
             raise RuntimeError(
@@ -292,8 +306,9 @@ class Programs:
     buffer sets on the CPU). With a :class:`Carry`, the first ``n_carry``
     arguments are staged in it."""
 
-    def __init__(self, name: str, carry: Carry = None):
+    def __init__(self, name: str, carry: Carry = None, span: str = None):
         self.name = name
+        self.span = span or name  # the recorder's span around a call
         self.graphs = Graphs(name)
         self.carry = carry
         self._built = {}
@@ -312,16 +327,17 @@ class Programs:
         """(device, buffers, built) for ``args``, keyed on their spec and
         ``static``: staged and built on the key's first call, copied into
         the buffers after (``linalg.require_fp32_matmul`` every call)."""
-        dev = device_of(args)
-        linalg.require_fp32_matmul(dev, self.name)
-        key = (spec(args), static)
-        hit = self._built.get(key)
-        if hit is None:
-            bufs = self._stage(args, n_carry)
-            hit = self._built[key] = (bufs, build(bufs, f"{len(self._built)}"))
-            self.captures += 1
-        else:
-            copy_in(hit[0], args)
+        with timing.span("dispatch", self.name):
+            dev = device_of(args)
+            linalg.require_fp32_matmul(dev, self.name)
+            key = (spec(args), static)
+            hit = self._built.get(key)
+            if hit is None:
+                bufs = self._stage(args, n_carry)
+                hit = self._built[key] = (bufs, build(bufs, f"{len(self._built)}"))
+                self.captures += 1
+            else:
+                copy_in(hit[0], args)
         return dev, hit[0], hit[1]
 
 
@@ -330,15 +346,17 @@ class Compiled(Programs):
     ``static`` values of a call (hashable; e.g. a sampler the function reads
     from its closure) are part of its capture key."""
 
-    def __init__(self, fn: Callable, name: str, n_carry: int = 0, carry: Carry = None):
-        super().__init__(name, carry)
+    def __init__(self, fn: Callable, name: str, n_carry: int = 0, carry: Carry = None,
+                 span: str = None):
+        super().__init__(name, carry, span)
         self.fn, self.n_carry = fn, n_carry
 
     def __call__(self, *args, static=()):
-        dev, bufs, graph = self.get(
-            args, lambda b, label: self.graphs.graph(label, lambda: self._body(b)), static,
-            self.n_carry)
-        return tuple(bufs[:self.n_carry]) + tuple(graph(dev))
+        with timing.frame(), timing.span(self.span):
+            dev, bufs, graph = self.get(
+                args, lambda b, label: self.graphs.graph(label, lambda: self._body(b)), static,
+                self.n_carry)
+            return tuple(bufs[:self.n_carry]) + tuple(graph(dev))
 
     def _body(self, bufs):
         outs = self.fn(*bufs)
@@ -348,8 +366,10 @@ class Compiled(Programs):
         return tuple(outs[n:])
 
 
-def compiled(fn: Callable, name: str, n_carry: int = 0, carry: Carry = None) -> Compiled:
+def compiled(fn: Callable, name: str, n_carry: int = 0, carry: Carry = None,
+             span: str = None) -> Compiled:
     """``fn`` as a compiled program whose first ``n_carry`` arguments and
     results are the carried state, staged in ``carry`` when given (module
-    docstring)."""
-    return Compiled(fn, name, n_carry, carry)
+    docstring); the recorder's span around a call is ``span`` (default:
+    ``name``)."""
+    return Compiled(fn, name, n_carry, carry, span)

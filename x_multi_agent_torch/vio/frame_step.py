@@ -17,6 +17,7 @@ import torch
 from ..ekf import ekf as ekf_mod
 from ..ops import linalg
 from ..parallel.mesh import agent_step_fn
+from ..utils import timing
 from ..vision import camera as cam_mod
 from ..vision import tracker as trk
 from . import pipeline
@@ -69,7 +70,9 @@ class CompiledFrameStep:
     :func:`frame_step` without the static ones; the returned state,
     matches and ``applied`` are the programs' buffers, valid until the next
     call. ``graphs`` are the programs' graph sets (capture cost, replayed
-    device work)."""
+    device work). With the recorder on (``utils/timing.py``) a call is the
+    ``frame`` span: ``tracker``, ``measure`` (the eager measurement), then
+    ``filter``."""
 
     def __init__(self, params: VioParams, tparams: trk.TrackerParams, cam: cam_mod.Camera,
                  seed: int = 0):
@@ -80,7 +83,9 @@ class CompiledFrameStep:
 
     def __call__(self, tstate, fs, slots, imgs, times, seqs, w_ms, a_ms, meas_time,
                  ransac_idx: Optional[torch.Tensor] = None):
-        tstate, matches = self.tracker(tstate, imgs, self.seed, ransac_idx)
-        meas = pipeline.FrameMeasurement.from_matches(self.params.cfg, matches)
-        fs, slots, applied = self.step(fs, slots, times, seqs, w_ms, a_ms, meas_time, meas)
+        with timing.frame():
+            tstate, matches = self.tracker(tstate, imgs, self.seed, ransac_idx)
+            with timing.span("measure"):
+                meas = pipeline.FrameMeasurement.from_matches(self.params.cfg, matches)
+            fs, slots, applied = self.step(fs, slots, times, seqs, w_ms, a_ms, meas_time, meas)
         return tstate, fs, slots, matches, applied

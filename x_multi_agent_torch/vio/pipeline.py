@@ -31,6 +31,7 @@ from ..ekf.state import (
 )
 from ..ops import linalg
 from ..ops.triangulation import ivd_to_world, triangulate_gn
+from ..utils import timing
 from ..utils.const import constant
 from . import state_manager as sm
 from . import track_manager as tm
@@ -173,6 +174,7 @@ def visual_update(
     p_ic = constant(tuple(cfg.p_ic), dtype, dev)
 
     # ---------------- 1. track classification (pre-slide window) ----------
+    timing.stamp("rows", cov)
     q_cur = camera_orientation(core, q_ic)
     slots, frame, slam_z = tm.manage_tracks(
         cfg.tracks, slots, meas.matches, vision.q_arr, q_cur, cfg.min_track_length,
@@ -229,6 +231,8 @@ def visual_update(
     for it in range(cfg.iekf_iter):
         # iterations > 0 keep the it-0 measurement model frozen (triangulated
         # point, projector, Jacobians, gates); only residuals move
+        if it:
+            timing.stamp("rows", cov)
         if it == 0:
             # one GN-triangulation chain for both track families
             all_obs = torch.cat([stack_obs, frame.new_obs], dim=1)
@@ -276,6 +280,7 @@ def visual_update(
         res = torch.cat([r.res for r in rows], dim=1)
         std = torch.cat([r.noise_std for r in rows], dim=1)
         have_any = (res != 0.0).any(1) | (jac != 0.0).any(2).any(1)
+        timing.stamp("apply", cov)
         corr, cov_upd = _apply_rows(
             cov, jac, res, std, correction_total, cov_update=(it == cfg.iekf_iter - 1)
         )

@@ -16,7 +16,7 @@ import torch
 from ..device import resolve
 from ..ops.ransac import keyed_sample_indices, ransac_inliers
 from ..place_recognition import descriptors
-from ..utils import graph
+from ..utils import graph, timing
 from ..utils.tree import scatter_dump, take
 from ..vio.track_manager import Matches, stable_partition
 from . import camera as cam_mod
@@ -128,12 +128,14 @@ def _track_core(params, cam, state: TrackerState, imgs, pyr_prev, pyr_cur, ransa
         pyr_prev, pyr_cur, state.pts, live & state.has_prev[:, None],
         half_win=params.win_half, n_iters=params.lk_iters, min_eig_thr=params.min_eig_thr,
     )
+    timing.stamp("ransac", imgs)
     if ransac_idx is None:
         # keyed on the agent's id counter, as the reference folds next_id
         # into its key: the hypotheses vary per frame and follow the state
         ransac_idx = keyed_sample_indices(ok, params.ransac_hypotheses, 8, seed, state.next_id)
     inliers = ransac_inliers(state.pts, cur_pts, ok, ransac_idx, params.ransac_threshold_px)
     tracked = ok & inliers
+    timing.stamp("matches", imgs)
 
     prev_n = cam_mod.normalize(cam, cam_mod.undistort(cam, state.pts))
     cur_n = cam_mod.normalize(cam, cam_mod.undistort(cam, cur_pts))
@@ -201,6 +203,7 @@ def _track_segment(params: TrackerParams, cam, state: TrackerState, imgs, ransac
     """Pyramids, LK (K2) and RANSAC: (matches, tracked, cur_pts, the current
     pyramid, need_detect (A,), need_detect.any())."""
     depth = params.lk_max_level
+    timing.stamp("flow", imgs)
     pyr_prev = build_pyramid(state.prev_img, depth)
     pyr_cur = build_pyramid(imgs, depth)
     matches, tracked, cur_pts = _track_core(
@@ -214,6 +217,7 @@ def _detect_segment(params: TrackerParams, state: TrackerState, imgs, tracked, c
                     pyr_cur, need_detect) -> TrackerState:
     """The detection branch: FAST (K1), tile top-k and suppression, then the
     slot update (only agents below the minimum append candidates)."""
+    timing.stamp("detect", imgs)
     pts1 = torch.where(tracked[..., None], cur_pts, 0.0)
     cand_xy, cand_score, cand_level, cand_valid = _detect_new_batch(
         params, pyr_cur, pts1, tracked
@@ -226,6 +230,7 @@ def _detect_segment(params: TrackerParams, state: TrackerState, imgs, tracked, c
 
 def _keep_segment(state: TrackerState, imgs, tracked, cur_pts) -> TrackerState:
     """The branch without detection: tracked features stay in their slots."""
+    timing.stamp("keep", imgs)
     return TrackerState(
         pts=torch.where(tracked[..., None], cur_pts, 0.0).to(imgs.dtype),
         ids=torch.where(tracked, state.ids, -1),
@@ -235,6 +240,17 @@ def _keep_segment(state: TrackerState, imgs, tracked, cur_pts) -> TrackerState:
         prev_img=imgs,
         has_prev=torch.ones_like(state.has_prev),
     )
+
+
+def _gate(need_any: torch.Tensor) -> bool:
+    """The detection gate's host read (the frame's one device-to-host
+    read), recorded as the ``gate`` span and counted."""
+    with timing.span("gate"):
+        detect = bool(need_any)
+    timing.count("host_syncs")
+    if detect:
+        timing.count("detect_frames")
+    return detect
 
 
 def track_frame_batch(
@@ -259,7 +275,7 @@ def track_frame_batch(
     matches, tracked, cur_pts, pyr_cur, need_detect, need_any = _track_segment(
         params, cam, state, imgs, ransac_idx, seed
     )
-    if bool(need_any):
+    if _gate(need_any):
         new_state = _detect_segment(params, state, imgs, tracked, cur_pts, pyr_cur, need_detect)
     else:
         new_state = _keep_segment(state, imgs, tracked, cur_pts)
@@ -278,17 +294,18 @@ class TrackerProgram(graph.Programs):
     call. ``(state, imgs, seed=0, ransac_idx=None) -> (state, matches)``."""
 
     def __init__(self, params: TrackerParams, cam: cam_mod.Camera, name: str = "tracker"):
-        super().__init__(name)
+        super().__init__(name, span="tracker")
         self.params, self.cam = params, cam
 
     def __call__(self, state: TrackerState, imgs: torch.Tensor, seed: int = 0,
                  ransac_idx: Optional[torch.Tensor] = None) -> Tuple[TrackerState, Matches]:
-        dev, bufs, prog = self.get((state, imgs, ransac_idx),
-                                   lambda b, label: self._program(b, seed, label), seed)
-        out = prog["a"](dev)
-        prog["a_out"] = out
-        prog["b" if bool(out[-1]) else "c"](dev)
-        return bufs[0], out[0]
+        with timing.frame(), timing.span(self.span):
+            dev, bufs, prog = self.get((state, imgs, ransac_idx),
+                                       lambda b, label: self._program(b, seed, label), seed)
+            out = prog["a"](dev)
+            prog["a_out"] = out
+            prog["b" if _gate(out[-1]) else "c"](dev)
+            return bufs[0], out[0]
 
     def _program(self, bufs, seed: int, label: str) -> dict:
         p, g = self.params, self.graphs
