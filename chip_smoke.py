@@ -32,6 +32,13 @@ Phases (any failure raises, so the exit code is non-zero):
      when the tracer kept no event), the plain version's time and the bound
      (the larger of the bytes over 3.35 TB/s and the operations over the
      fp32 peak, counted for these inputs: see ``k1_work`` and ``k2_work``);
+     4b. the filter's track-rows kernel (``csrc/track_rows.cu``) at 512, 64
+     and 1 agents (the benchmark's fleets) on the operands the eager filter
+     step hands it after 8 steps of the bench's match inputs: its three
+     launches of a step (MSCKF, MSCKF-SLAM, SLAM) timed as in phase 4 beside
+     the plain chain's time on the same operands and the bound from the
+     launch shapes (``track_rows_times``); gate decisions alike on >= 99.9 %
+     of the tracks and kept rows within 1e-3 of their largest magnitude;
   5. collaboration: a fresh fleet of the same 16 agents from their
      initial states through ``frame_step`` for 10 frames, with a full-map
      exchange round (``collab.collaborative_round``, the reference's
@@ -222,8 +229,11 @@ Phases (any failure raises, so the exit code is non-zero):
 
 The last three lines of standard output are the kernels' JSON record (the
 launch counts summed over the paths of phases 3, 5-9, 10's ranks, 11-15,
-each read from 0 around its path, a graph's replays included; phase 4's
-times per launch), the
+each read from 0 around its path, a graph's replays included, for K1, K2,
+the track-rows kernel and its two helpers, ``cov_finite`` and
+``track_reflect``; on every such path the rows kernel launched 3 times per
+filter step, each after a finiteness pass, with 8 reflection launches:
+``check_rows``; phase 4's and 4b's times per launch), the
 card's ``nvidia-smi`` name and power limit, and the result JSON.
 """
 import contextlib
@@ -271,6 +281,10 @@ K2_STABLE_FLOOR = 0.95
 THERMAL_GAINS = [(1.0 + 0.01 * k, 0.002 * k) for k in range(N_FACADE)]
 THERMAL_VIGNETTE, THERMAL_NOISE, PHOTO_OBS = 0.06, 0.006, 80
 CELL_PX, SPATIAL_EVERY = 40, 10
+# phase 4b: the track-rows kernel's fleets (the benchmark's three cells) and
+# the eager filter steps on the bench's match inputs before its operands are
+# kept (MSCKF tracks exist by then)
+ROWS_AGENTS, ROWS_STEPS = (512, 64, 1), 8
 # one H100 SXM at its 700 W limit (NVIDIA's data sheet): HBM3 bytes/s, fp32
 # flop/s outside the tensor cores (an FMA counts 2), and fp32 instructions/s
 # that are not FMAs (min, max, compare, add: one per lane per clock)
@@ -454,6 +468,101 @@ def kernel_times(torch, fast, lk, det_levels, level_inputs, thr) -> dict:
     return out
 
 
+def track_rows_operands(torch, params, agents: int, device) -> list:
+    """The operands of the filter's three row builders at ``agents`` agents:
+    the eager filter step (``mesh.agent_step``) on the bench's match inputs
+    for ``ROWS_STEPS`` steps from the bench's start, the last step's calls of
+    ``track_rows.window_rows`` (MSCKF, then MSCKF-SLAM) and
+    ``track_rows.slam_rows`` kept as (wrapper name, operands)."""
+    import numpy as np
+
+    from x_multi_agent_torch.parallel import mesh
+    from x_multi_agent_torch.utils import bench
+    from x_multi_agent_torch.vio import pipeline, vio
+    from x_multi_agent_torch.vio.updates import track_rows
+
+    xs = bench._per_step(bench.match_inputs_stacked(
+        params, agents, ROWS_STEPS, np.random.default_rng(0), device=device))
+    step = mesh.agent_step(params)
+    fs, slots = vio.init_at_time(params, 0.0, agents, device, v=np.asarray(bench.SIM_V0))
+    wrappers = {name: getattr(track_rows, name) for name in ("window_rows", "slam_rows")}
+    kept = []
+
+    def spy(name):
+        def call(*args):
+            kept.append((name, args))
+            return wrappers[name](*args)
+        return call
+
+    try:
+        for name in wrappers:
+            setattr(track_rows, name, spy(name))
+        for x in xs:
+            kept.clear()
+            fs, slots, _ = step(fs, slots, *x[:5],
+                                pipeline.FrameMeasurement.from_matches(params.cfg, x[5]))
+    finally:
+        for name, fn in wrappers.items():
+            setattr(track_rows, name, fn)
+    torch.cuda.synchronize()
+    return list(kept)
+
+
+def track_rows_times(torch, params, device) -> dict:
+    """Phase 4b: at each fleet of ``ROWS_AGENTS``, the track-rows kernel's
+    three launches of one filter step (MSCKF, MSCKF-SLAM, SLAM) on the
+    operands of :func:`track_rows_operands`: device ms per launch from a CUDA
+    graph (:func:`graph_ms`), CUDA-event ms of the calls, profiler device ms,
+    the plain chain's ms on the same operands, the bound from the launch
+    shapes (the count the benchmark's ``track_rows_roofline`` reads:
+    ``benchmark/metrics/track_rows_roofline.py``) and what bounds it, and the
+    kernel against the plain chain: the share of gate decisions alike and the
+    largest difference of the rows both keep over the rows' largest
+    magnitude."""
+    from benchmark.metrics import track_rows_roofline as trr
+    from x_multi_agent_torch.vio.updates import track_rows
+
+    dims, tr = params.cfg.dims, params.cfg.tracks
+    m, n, d = dims.n_poses, dims.n_features, dims.d
+    size = torch.empty((), dtype=params.tdtype).element_size()
+    kinds = ("msckf", "msckf_slam", "slam")
+    out = {}
+    for agents in ROWS_AGENTS:
+        ops = track_rows_operands(torch, params, agents, device)
+        work = [trr.window_work(agents, tr.n_msckf + tr.n_short, m, d, size, False),
+                trr.window_work(agents, tr.n_new_slam, m, d, size, True),
+                trr.slam_work(agents, n, d, size)]
+        if [name for name, _ in ops] != ["window_rows", "window_rows", "slam_rows"]:
+            raise AssertionError(f"phase 4b: the filter step called {[x for x, _ in ops]}")
+        for kind, (name, args), (flops, nbytes) in zip(kinds, ops, work):
+            kern = getattr(track_rows, name)
+            plain = track_rows._window_plain if name == "window_rows" else track_rows._slam_plain
+            got, ref = kern(*args), plain(*args)
+            torch.cuda.synchronize()
+            if name == "window_rows":
+                keep_k, keep_p, rows_k, rows_p = got[2], ref[2], got[0], ref[0]
+            else:
+                keep_k, keep_p = ((x[0].reshape(agents, n, -1) != 0).any(-1) for x in (got, ref))
+                rows_k, rows_p = (x[0].reshape(agents, n, 2, -1) for x in (got, ref))
+            both = keep_k & keep_p
+            w = both.reshape(both.shape + (1,) * (rows_p.dim() - both.dim()))
+            scale = float(rows_p.abs().max()) or 1.0
+            t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
+            r = {"device_ms": graph_ms(torch, lambda: kern(*args), track_rows.TRACK_ROWS),
+                 "ms": _ms(torch, lambda: kern(*args)),
+                 "profiler_ms": profiler_ms(torch, lambda: kern(*args), "track_rows_kernel"),
+                 "plain_ms": _ms(torch, lambda: plain(*args)),
+                 "bound_ms": max(t_bytes, t_ops),
+                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                 "bytes": nbytes, "ops": flops, "kept": int(keep_k.sum()),
+                 "tracks": int(keep_k.numel()),
+                 "keep_agree": float((keep_k == keep_p).float().mean()),
+                 "max_rel_err": float(torch.where(w, (rows_k - rows_p).abs(), 0.0).max()) / scale}
+            r["share_of_bound"] = r["bound_ms"] / r["device_ms"]
+            out[(agents, kind)] = r
+    return out
+
+
 def _profiled(r) -> str:
     return "not measured" if r["profiler_ms"] is None else f"{r['profiler_ms']:.4f} ms"
 
@@ -511,6 +620,31 @@ def _cov_health(torch, cov) -> dict:
         "max_abs": float(cov.abs().max()),
         "min_pos_eig": float(torch.linalg.eigvalsh(0.5 * (pos + pos.transpose(1, 2))).min()),
     }
+
+
+def smoke_kernels() -> dict:
+    """The hand-written kernels whose launches the smoke reads around each
+    path: K1, K2, and the filter's track-rows kernel with its finiteness
+    pass over P and the window tracks' reflections."""
+    from x_multi_agent_torch.vio.updates import track_rows
+    from x_multi_agent_torch.vision import fast, lk
+
+    return {"fast": fast.K1, "lk": lk.K2, "track_rows": track_rows.TRACK_ROWS,
+            "cov_finite": track_rows.COV_FINITE, "reflect": track_rows.REFLECT}
+
+
+def check_rows(where: str, n: dict, steps: int) -> None:
+    """The filter's row builders on ``where``'s path went through the
+    track-rows kernel: per visual update (an IEKF iteration) 3 launches of
+    it, each after its own finiteness pass over P, and 8 of the window
+    tracks' reflections (4 for each of MSCKF and MSCKF-SLAM); at least
+    ``steps`` updates ran."""
+    t = n["track_rows"]
+    print(f"{where}: launches track_rows {t} over at least {steps} filter steps, cov_finite "
+          f"{n['cov_finite']}, track_reflect {n['reflect']}")
+    if steps < 1 or t < 3 * steps or n["cov_finite"] != t or 3 * n["reflect"] != 8 * t:
+        raise AssertionError(f"{where}: the row builders missed the track-rows kernel over "
+                             f"{steps} filter steps: {n}")
 
 
 class _Launches:
@@ -933,11 +1067,12 @@ def exchange_rank(mesh, n_agents, words):
     this rank's block of phase 7's fleet (a fresh fleet from
     ``orbit_start``, rendered here) through ``frame_step.CompiledFrameStep``
     with descriptors for ``N_RC`` frames (K1/K2 launched from the tracker's
-    graphs and counted from their nodes), the keyframe step after each
-    (eager, as in the reference), then :func:`round_twins` from the state
-    after the last frame. Returns the block's pre-round states, the compiled
-    twin's first round outputs, the twins' record, K1/K2 launches (and
-    whether every graph's were read from its nodes) and updates applied."""
+    graphs and the track-rows kernels from the filter's, counted from their
+    nodes), the keyframe step after each (eager, as in the reference), then
+    :func:`round_twins` from the state after the last frame. Returns the
+    block's pre-round states, the compiled twin's first round outputs, the
+    twins' record, the launches of :func:`smoke_kernels` (and whether every
+    graph's were read from its nodes) and updates applied."""
     import torch
 
     _no_jax()
@@ -948,7 +1083,7 @@ def exchange_rank(mesh, n_agents, words):
     from x_multi_agent_torch.utils.scene import orbit_dataset, orbit_start
     from x_multi_agent_torch.vio import vio
     from x_multi_agent_torch.vio.frame_step import CompiledFrameStep
-    from x_multi_agent_torch.vision import fast, lk, tracker
+    from x_multi_agent_torch.vision import tracker
 
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
@@ -963,7 +1098,9 @@ def exchange_rank(mesh, n_agents, words):
     ccfg = collab.CollabConfig()
     words = words.to(dev)
     db_dims = db_mod.DbDims(n_keyframes=15, n_words=N_WORDS, max_agents=n_agents)
-    fast.K1.launches = lk.K2.launches = 0
+    kernels = smoke_kernels()
+    for k in kernels.values():
+        k.launches = 0
     fs, slots = vio.init_at_time(params, 0.0, blk, dev, p=p0, v=v0, q=q0)
     tstate = tracker.TrackerState.zero(tparams, blk, H, W, device=dev)
     db = db_mod.KeyframeDB.zero(db_dims, collab.extract_payload_desc(params, fs, slots))
@@ -976,7 +1113,7 @@ def exchange_rank(mesh, n_agents, words):
         db, kf_meta, _ = collab.maybe_add_keyframe(params, db_dims, words, fs, slots, db,
                                                    kf_meta, enabled=applied)
         n_applied = n_applied + applied.sum()
-    launches = {"fast": fast.K1.launches, "lk": lk.K2.launches}
+    launches = {name: k.launches for name, k in kernels.items()}
     pre = tree.map_leaves(torch.clone, (fs, slots, db))  # the step's buffers, kept
     drive_s = time.perf_counter() - t0
     twins, first = round_twins(torch, mesh, params, ccfg, words, *pre)
@@ -1251,6 +1388,8 @@ def check_exchange(ex, counts, card) -> None:
     if any(r["launches"]["fast"] < 1 or r["launches"]["lk"] < 3 * N_RC or not r["kernels_read"]
            for r in ex["ranks"]):
         raise AssertionError(f"exchange: a rank missed a kernel: {ex['ranks']}")
+    for i, r in enumerate(ex["ranks"]):
+        check_rows(f"exchange rank {i}", r["launches"], N_RC)
     if ex["hits"] < 1 or ex["desc_fused"] < 1 or ex["full_fused"] < 1:
         raise AssertionError("exchange: no hit or no fused match")
     for key, d in ex["gloo"].items():
@@ -1406,6 +1545,7 @@ def check_ate_report(ate, launches, card) -> None:
     if ((1, args.height, args.width) not in ate["k1_shapes"] or any(k2_short.values())
             or launches["fast"] < 1):
         raise AssertionError(f"ate report missed a kernel: {launches}, {ate['k1_shapes']}, {k2_short}")
+    check_rows("ate report", launches, na)  # one facade an agent and pass, each updating
     if ate["seconds"] > ATE_BUDGET_S:  # reported, not failed: the shared host sets the pace
         for out in (sys.stdout, sys.stderr):
             print(f"ate report: OVER its {ATE_BUDGET_S:.0f} s budget ({ate['seconds']:.2f} s): "
@@ -1670,6 +1810,7 @@ def check_studies(st, launches, card) -> None:
             raise AssertionError(f"gate bisect: covariance after variant {name}: {c}")
     if launches["fast"] < 1 or launches["lk"] < 3 * int(STUDY_DURATION * 10):
         raise AssertionError(f"studies missed a kernel: {launches}")
+    check_rows("studies", launches, 1)
     if st["seconds"] > STUDY_BUDGET_S:  # reported, not failed: the shared host sets the pace
         for out in (sys.stdout, sys.stderr):
             print(f"studies: OVER their {STUDY_BUDGET_S:.0f} s budget ({st['seconds']:.2f} s): "
@@ -1761,12 +1902,14 @@ def check_bench(bn, card) -> None:
               f"({_measured(tr['device_idle_share'], 4)} of a traced one); launches K1 "
               f"{st['launches']['fast']} K2 {st['launches']['lk']} ({card})")
     print(f"phase 13: {bn['seconds']:.2f} s wall (budget {BENCH_BUDGET_S:.0f} s) ({card})")
+    steps = {"matches": BENCH_STEPS, "batch1": BENCH_B1_STEPS, "image": BENCH_IMG_STEPS}
     for st in bn["programs"]:
         n = st["launches"]
         if st["name"] == "image" and (n["fast"] < 1 or n["lk"] < 3 * 2 * BENCH_IMG_STEPS):
             raise AssertionError(f"the image bench missed a kernel: {n}")
-        if st["name"] != "image" and any(n.values()):
+        if st["name"] != "image" and (n["fast"] or n["lk"]):
             raise AssertionError(f"the {st['name']} bench launched K1/K2: {n}")
+        check_rows(f"bench {st['name']} at {st['agents']} agents", n, steps[st["name"]])
     if bn["seconds"] > BENCH_BUDGET_S:  # reported, not failed: the shared host sets the pace
         for out in (sys.stdout, sys.stderr):
             print(f"bench: OVER its {BENCH_BUDGET_S:.0f} s budget ({bn['seconds']:.2f} s): "
@@ -1873,7 +2016,7 @@ def run_compiled(torch, params, counts, fast, lk, dev) -> dict:
         r.update(graphs=sum(g.captured for g in graphs), capture_s=sum(g.capture_s for g in graphs),
                  pool_bytes=sum(g.pool_bytes for g in graphs))
         states = {"eager": start, "compiled": start}
-        r["launches"] = {mode: {"fast": 0, "lk": 0} for mode in states}
+        r["launches"] = {mode: dict.fromkeys(counts.kernels, 0) for mode in states}
         with _KernelInputs(fast, lk, keep=-1) as k_in:
             for k, x in enumerate(xs[:COMPILED_STEPS]):
                 out = {}
@@ -1966,8 +2109,9 @@ def check_compiled(cp, card) -> None:
         if r["name"] == "image" and (n["compiled"]["fast"] < 1
                                      or n["compiled"]["lk"] < 3 * COMPILED_STEPS):
             raise AssertionError(f"{head} missed a kernel: {n}")
-        if r["name"] != "image" and any(n["compiled"].values()):
+        if r["name"] != "image" and (n["compiled"]["fast"] or n["compiled"]["lk"]):
             raise AssertionError(f"{head} launched K1/K2: {n}")
+        check_rows(head, n["compiled"], COMPILED_STEPS)
         if r["recaptured"] or r["compiled"]["trace"]["graph_launches"] < 1:
             raise AssertionError(f"{head}: captured again, or replayed no graph")
         if not r["kernels_read"]:
@@ -2024,8 +2168,8 @@ def run_twins(torch, name, make, frame, n, agents, counts) -> dict:
     runs = {mode: make(mode == "compiled") for mode in ("compiled", "eager")}
     recs = {mode: {} for mode in runs}
     r = {"name": name, "frames": n, "agents": agents, "bitwise_frames": 0, "first_diff": None,
-         **{mode: {"ms": [], "syncs": [], "calls": [], "launches": {"fast": 0, "lk": 0}}
-            for mode in runs}}
+         **{mode: {"ms": [], "syncs": [], "calls": [],
+                   "launches": dict.fromkeys(counts.kernels, 0)} for mode in runs}}
 
     def graphs(mode):
         if mode == "eager":
@@ -2129,6 +2273,8 @@ def check_twins(tw, card) -> None:
         if c["launches"] != e["launches"] or not r["kernels_read"]:
             raise AssertionError(f"{head}: K1/K2 launches differ or were not read from the "
                                  f"graphs: {c['launches']} vs {e['launches']}")
+        if not r["name"].startswith("full-map round"):  # the facades update every frame
+            check_rows(head, c["launches"], 1)
         if c["launch_calls"] >= 100 or c["graph_launches"] < 1:
             raise AssertionError(f"{head}: {c['launch_calls']} launch calls per agent-frame, "
                                  f"{c['graph_launches']} graph launches per frame")
@@ -2156,6 +2302,7 @@ def main() -> int:
     from x_multi_agent_torch.utils.scene import orbit_dataset, orbit_start
     from x_multi_agent_torch.vio import vio
     from x_multi_agent_torch.vio.frame_step import frame_step
+    from x_multi_agent_torch.vio.updates import track_rows
     from x_multi_agent_torch.vision import fast, lk, tracker
 
     # ---- 0. card and build -------------------------------------------------
@@ -2177,7 +2324,7 @@ def main() -> int:
     tparams = configs.flagship_tracker(params.cfg.tracks.n_matches)
     cam = configs.flagship_camera(H, W)
     records = {}
-    counts = _Launches({"fast": fast.K1, "lk": lk.K2})
+    counts = _Launches(smoke_kernels())
 
     _no_jax()
 
@@ -2254,6 +2401,7 @@ def main() -> int:
         raise AssertionError("filter covariance not finite")
     if launches["fast"] < 1 or launches["lk"] < 3 * (N_WARM + N_TIMED):
         raise AssertionError(f"main path missed a kernel: {launches}")
+    check_rows("slice", launches, N_WARM + N_TIMED)
     _no_jax()
 
     # ---- 4. kernel times per launch at the slice shapes, against the bound --
@@ -2266,6 +2414,20 @@ def main() -> int:
               f"({r['bound_by']}: {r['bytes_per_frame']} bytes, {r['ops_per_frame']} operations "
               f"per frame), share of bound {r['share_of_bound']:.3f} ({card})")
 
+    _no_jax()
+
+    # ---- 4b. the filter's track-rows kernel per launch at the benchmark's fleets
+    rows_times = track_rows_times(torch, params, dev)
+    for (agents, kind), r in rows_times.items():
+        print(f"time track_rows {kind} at A = {agents} per launch: device {r['device_ms']:.4f} ms "
+              f"(CUDA graph), profiler {_profiled(r)}, events {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
+              f"{r['bytes']:.0f} bytes, {r['ops']:.0f} operations), share of bound "
+              f"{r['share_of_bound']:.3f}; kept {r['kept']} of {r['tracks']}, gate decisions alike "
+              f"{r['keep_agree']:.5f}, rows max |kernel - plain| {r['max_rel_err']:.3g} of their "
+              f"largest ({card})")
+        if r["keep_agree"] < 0.999 or r["max_rel_err"] > 1e-3:
+            raise AssertionError(f"track_rows {kind} at A = {agents} differs from the plain chain")
     _no_jax()
 
     # ---- 5. collaborative rounds on the image path --------------------------
@@ -2289,6 +2451,7 @@ def main() -> int:
         raise AssertionError("collaborative state not finite")
     if launches["fast"] < 1 or launches["lk"] < 3 * N_COLLAB:
         raise AssertionError(f"collaboration path missed a kernel: {launches}")
+    check_rows("collab", launches, N_COLLAB)
     _no_jax()
 
     # ---- 6. the single-agent facade -----------------------------------------
@@ -2319,6 +2482,7 @@ def main() -> int:
         raise AssertionError("facade tail not finite")
     if launches["fast"] < 1 or (1, H, W) not in shapes or launches["lk"] < 3 * N_FACADE:
         raise AssertionError(f"facade path missed a kernel: {launches}, {shapes}")
+    check_rows("facade", launches, n_applied)
     _no_jax()
 
     # ---- 7. the request-response fleet ---------------------------------------
@@ -2360,6 +2524,7 @@ def main() -> int:
         raise AssertionError(f"card descriptors disagree with the CPU's: {rc['desc_bits']}")
     if launches["fast"] < 1 or launches["lk"] < 3 * N_RC:
         raise AssertionError(f"request-response path missed a kernel: {launches}")
+    check_rows("request-response fleet", launches, N_RC)
     _no_jax()
 
     # ---- 8. the collaborating facade pair ------------------------------------
@@ -2388,6 +2553,7 @@ def main() -> int:
         raise AssertionError("the facade pair selected no keyframe, had no hit or fused nothing")
     if launches["fast"] < 1 or (1, H, W) not in shapes or launches["lk"] < 3 * N_FACADE:
         raise AssertionError(f"facade pair path missed a kernel: {launches}, {shapes}")
+    check_rows("facade pair", launches, fp["applied"])
     _no_jax()
 
     # ---- 9. the thermal facade ---------------------------------------------
@@ -2433,6 +2599,7 @@ def main() -> int:
             raise AssertionError(f"thermal facade {name}: gains not finite or a - b <= 0")
         if launches["fast"] < 1 or (1, H, W) not in shapes or launches["lk"] < 3 * N_FACADE:
             raise AssertionError(f"thermal facade {name} missed a kernel: {launches}, {shapes}")
+        check_rows(f"thermal facade {name}", launches, tr["applied"])
         if any(where for due, where in tr["syncs"] if not due):
             raise AssertionError(f"thermal facade {name}: a host wait in the update: {tr['syncs']}")
         if spatial and not (tr["solved"] and tr["map_finite"]):
@@ -2538,6 +2705,23 @@ def main() -> int:
                                        "bound_by", "share_of_bound", "launches_per_frame",
                                        "library_ms")},
         })
+    rows_fleets = {}  # per filter step: its three launches summed
+    for (agents, kind), r in rows_times.items():
+        f = rows_fleets.setdefault(agents, {"device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0})
+        for key in ("device_ms", "plain_ms", "bound_ms"):
+            f[key] += r[key]
+    for f in rows_fleets.values():
+        f["share_of_bound"] = f["bound_ms"] / f["device_ms"]
+    kernels.append({
+        "name": track_rows.TRACK_ROWS.name, "route": "cuda", "source": track_rows.TRACK_ROWS.source,
+        "replaces": track_rows.TRACK_ROWS.replaces, "launches": counts.total["track_rows"],
+        "max_rel_err": max(r["max_rel_err"] for r in rows_times.values()),
+        "per_step_by_agents": rows_fleets,
+    })
+    for name, k in (("cov_finite", track_rows.COV_FINITE), ("reflect", track_rows.REFLECT)):
+        kernels.append({"name": k.name, "route": "cuda", "source": k.source,
+                        "replaces": k.replaces, "launches": counts.total[name],
+                        "part_of": track_rows.TRACK_ROWS.name})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -456,6 +456,30 @@ def test_compiled_filter_step_equals_eager_bit_for_bit(cuda):
 
 
 @pytest.mark.gpu
+def test_track_rows_counts_advance_on_replay(cuda):
+    """The filter step's three row builders go through the track-rows
+    kernel: its launches rise by 3 (each with its finiteness pass over P,
+    and 8 launches of the window tracks' reflections) on the eager first
+    call and on every replay of the captured graph, read from the graph's
+    kernel nodes."""
+    from x_multi_agent_torch.vio.updates import track_rows
+
+    tp = configs.flagship_params(small=True)._replace(dtype="float32")
+    xs = [tree.map_leaves(lambda v: v.to(cuda), _meas(tp, x))
+          for x in _match_windows(tp, torch.float32)[:4]]
+    comp = tmesh.agent_step_fn(tp)
+    fs, slots = tvio.init_at_time(tp, 0.0, A, cuda, v=np.asarray(tbench.SIM_V0))
+    counts = []
+    kernels = (track_rows.TRACK_ROWS, track_rows.COV_FINITE, track_rows.REFLECT)
+    for x in xs:
+        before = [k.launches for k in kernels]
+        fs, slots, _ = comp(fs, slots, *x)
+        counts.append(tuple(k.launches - b for k, b in zip(kernels, before)))
+    assert counts == [(3, 3, 8)] * len(xs) and comp.graphs.captured == 1
+    assert comp.graphs.kernels_read
+
+
+@pytest.mark.gpu
 def test_capture_failure_raises_with_no_eager_fallback(cuda):
     prog = graph.compiled(lambda s: (s + s.sum().item(),), "reads_the_host", n_carry=1)
     with pytest.raises(RuntimeError, match="reads_the_host"):

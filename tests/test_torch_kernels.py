@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels (K1 FAST, K2 LK level) against their plain
-PyTorch versions, and the card's float32 collaborative rounds (the full-map
+"""The hand-written CUDA kernels (K1 FAST, K2 LK level, the filter's track
+rows) against their plain PyTorch versions, and the card's float32 collaborative rounds (the full-map
 round and the descriptor-driven request-response round) against the CPU's
 float64 ones, with no synchronizing operation inside a round.
 
@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import scipy.ndimage as ndi
 import torch
+import track_rows_inputs as rows_in
 from hypothesis import given, settings
 
 from x_multi_agent_torch import configs
@@ -28,6 +29,7 @@ from x_multi_agent_torch.utils import tree
 from x_multi_agent_torch.vio import pipeline
 from x_multi_agent_torch.vio import track_manager as tm
 from x_multi_agent_torch.vio import vio
+from x_multi_agent_torch.vio.updates import msckf, msckf_slam, slam, track_rows
 from x_multi_agent_torch.vision import fast, lk
 from x_multi_agent_torch.vision.image import scharr_gradients
 
@@ -534,3 +536,200 @@ def test_request_comm_rounds_never_wait_for_the_card(cuda, desc_fleet):
         step()
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+def test_track_rows_cpu_tensors_use_plain_chain():
+    before = track_rows.TRACK_ROWS.launches
+    finite, reflect = track_rows.COV_FINITE.launches, track_rows.REFLECT.launches
+    obs, mask, q, p, cov = rows_in.window(0, 2, 6, 6, 4)
+    msckf.build(obs, mask, q, p, cov, rows_in.SIGMA_IMG, 4)
+    msckf_slam.build(obs, mask, q, p, cov, rows_in.SIGMA_IMG, 4)
+    slam.build(*rows_in.slam(0, 2, 6, 4), rows_in.SIGMA_IMG)
+    assert track_rows.TRACK_ROWS.launches == before
+    assert track_rows.COV_FINITE.launches == finite and track_rows.REFLECT.launches == reflect
+
+
+def _spy(monkeypatch, name):
+    """Record the operands the builders hand to ``track_rows.<name>``."""
+    calls, fn = [], getattr(track_rows, name)
+
+    def spy(*args):
+        calls.append(args)
+        return fn(*args)
+
+    monkeypatch.setattr(track_rows, name, spy)
+    return calls
+
+
+def _gate_margin(gamma, thr):
+    """Tracks whose gamma lies within 1e-4 relative of its threshold: there a
+    rounding of the sums may flip the gate either way."""
+    return torch.abs(gamma - thr) <= 1e-4 * torch.abs(thr)
+
+
+# Tolerances of the kernel against the plain chain on the same operands. The
+# kernel sums each reflection's 2M-term dot products serially and each
+# product of S over the pose columns in its own order, where the plain chain
+# goes through cuBLAS: float32 results differ by a few ulp of the sums' terms
+# (~1e-6 of a leaf's largest magnitude at 2M = 30), so 1e-4; float64 1e-10.
+_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
+
+
+def _close_on(got, ref, scale, tol, where):
+    """Leaves within ``tol`` of ``scale`` on the tracks ``where`` (A, K)."""
+    w = where.reshape(where.shape + (1,) * (ref.dim() - where.dim()))
+    diff = float(torch.where(w, (got - ref).abs(), 0.0).max())
+    assert diff <= tol * float(scale), (diff, float(scale))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,n,k", [(15, 15, 15), (10, 10, 10)])
+def test_track_rows_window_kernel_matches_plain(cuda, monkeypatch, dtype, m, n, k):
+    """MSCKF and MSCKF-SLAM rows, residuals, h1, h2, r1 and gate decisions of
+    the kernel against the plain chain run on the card on the same operands,
+    with a NaN in one agent's P (all its tracks rejected, as the plain chain
+    rejects them) and an indefinite P in another (S does not factorize)."""
+    obs, mask, q, p, cov = (x.to(cuda) for x in rows_in.window(7 + m, 3, k, m, n, edge=True,
+                                                                 dtype=dtype))
+    calls = _spy(monkeypatch, "window_rows")
+    before, finite = track_rows.TRACK_ROWS.launches, track_rows.COV_FINITE.launches
+    msckf.build(obs, mask, q, p, cov, rows_in.SIGMA_IMG, n)
+    msckf_slam.build(obs, mask, q, p, cov, rows_in.SIGMA_IMG, n)
+    assert track_rows.TRACK_ROWS.launches == before + 2
+    assert track_rows.COV_FINITE.launches == finite + 2  # one finiteness pass a launch
+    tol = _TOL[dtype]
+    for args in list(calls):  # the spy records the calls below too
+        res, n_obs = args[0], args[6]
+        got = track_rows.window_rows(*args)
+        ref = track_rows._window_plain(*args)
+        _, _, gamma, _ = track_rows._window_dense(*args[:6], *args[8:])
+        thr = track_rows.chi2_quantile_table(0.95, 2 * m, dtype, cuda)[
+            torch.clamp(2 * n_obs - 3, 0, 2 * m)]
+        # the gate agrees off its margin; where S does not factorize (a NaN
+        # gamma) or nearly so (gamma above 1e8), only the kept flag is held
+        assert bool(((got[2] == ref[2]) | _gate_margin(gamma, thr)).all())
+        sure = torch.isfinite(gamma) & (gamma.abs() < 1e8)
+        assert bool(((got[3] == ref[3]) | ~sure).all())
+        assert not got[2][1].any() and not got[3][1].any() and not ref[3][1].any()
+        assert bool(torch.isnan(gamma[2]).any()) and bool(got[2][0].sum() >= k - 4)
+        both = got[2] & ref[2]
+        _close_on(got[0], ref[0], ref[0].abs().max(), tol, both)
+        _close_on(got[1], ref[1], ref[1].abs().max(), tol, both)
+        assert not torch.where(~got[2][..., None, None], got[0], 0.0).any()
+        assert not torch.where(~got[2][..., None], got[1], 0.0).any()
+        if ref[4] is not None:  # MSCKF-SLAM's h1, h2, r1, unmasked
+            every = torch.ones_like(got[2])
+            h1, h2, r1 = ref[4]
+            _close_on(got[4][0], h1, h1.abs().max(), tol, every)
+            _close_on(got[4][1], h2, h2.abs().max(), tol, every)
+            # r1 (the residual along the feature) is ~0: its residuals' scale
+            _close_on(got[4][2], r1, res.abs().max(), tol, every)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,n", [(15, 15), (10, 10)])
+def test_track_rows_slam_kernel_matches_plain(cuda, monkeypatch, dtype, m, n):
+    """SLAM rows and gate decisions of the kernel against the plain chain
+    on the card: the special rows (anchor at the current pose), an empty
+    anchor slot, the non-finite and the indefinite P. A kept feature's rows
+    and residual are copies of its blocks, so they are held exactly."""
+    args = [x.to(cuda) if isinstance(x, torch.Tensor) else x
+            for x in rows_in.slam(3 + m, 3, m, n, edge=True, dtype=dtype)]
+    calls = _spy(monkeypatch, "slam_rows")
+    before, finite = track_rows.TRACK_ROWS.launches, track_rows.COV_FINITE.launches
+    slam.build(*args, rows_in.SIGMA_IMG)
+    assert track_rows.TRACK_ROWS.launches == before + 1
+    assert track_rows.COV_FINITE.launches == finite + 1
+    ops = calls[0]
+    got = track_rows.slam_rows(*ops)
+    ref = track_rows._slam_plain(*ops)
+    _, gamma = track_rows._slam_dense(*ops[:10])
+    thr = track_rows.chi2_quantile_table(0.90, 2 * ops[12], dtype, cuda)[
+        torch.clamp(2 * ops[10], 0, 2 * ops[12])]
+    kept = [(x[0].reshape(3, n, 2, -1) != 0).any(-1).any(-1) for x in (got, ref)]
+    assert bool(((kept[0] == kept[1]) | _gate_margin(gamma, thr)).all())
+    # agents 0 and 1: the special rows kept; the empty slot, the outlier and
+    # track length 0 rejected; every feature of the agent with a NaN in P
+    assert kept[0][0, 0] and not kept[0][1].any() and not kept[0][:2, 1:4].any()
+    both = kept[0] & kept[1]
+    _close_on(got[0].reshape(3, n, 2, -1), ref[0].reshape(3, n, 2, -1), 1.0, 0.0, both)
+    _close_on(got[1].reshape(3, n, 2), ref[1].reshape(3, n, 2), 1.0, 0.0, both)
+
+
+@pytest.mark.gpu
+def test_track_rows_rejects_bad_operands(cuda, monkeypatch):
+    obs, mask, q, p, cov = (x.to(cuda) for x in rows_in.window(0, 2, 4, 3, 3))
+    with pytest.raises(ValueError, match="4 <= M <= 16"):
+        msckf.build(obs, mask, q, p, cov, rows_in.SIGMA_IMG, 3)
+    obs, mask, q, p, cov = (x.to(cuda) for x in rows_in.window(0, 2, 4, 6, 3,
+                                                                 dtype=torch.float32))
+    calls = _spy(monkeypatch, "window_rows")
+    msckf.build(obs, mask, q, p, cov, rows_in.SIGMA_IMG, 3)
+    args = list(calls[0])
+    args[4] = args[4].double()  # blocks float32, covariance float64
+    with pytest.raises(ValueError, match="expected torch.float64"):
+        track_rows.window_rows(*args)
+
+
+def _bit_for_bit(cuda, monkeypatch, agents):
+    """The kernel's window rows against the plain chain's at ``agents`` x 15
+    tracks, float32: equal bit for bit on the tracks both keep."""
+    obs, mask, q, p, cov = (x.to(cuda) for x in rows_in.window(5, agents, 15, 15, 15,
+                                                                 dtype=torch.float32))
+    calls = _spy(monkeypatch, "window_rows")
+    msckf.build(obs, mask, q, p, cov, rows_in.SIGMA_IMG, 15)
+    msckf_slam.build(obs, mask, q, p, cov, rows_in.SIGMA_IMG, 15)
+    why = (f"at {agents} x 15 tracks the kernel's rows differ from the plain chain's: cuBLAS "
+           "no longer sums the plain chain's v^T a in row order at this batch, which the "
+           "kernel's rounding copies (ROADMAP D6)")
+    for args in list(calls):
+        got = track_rows.window_rows(*args)
+        ref = track_rows._window_plain(*args)
+        both = got[2] & ref[2]
+        assert int(both.sum()) >= agents * 10
+        assert torch.equal(got[0][both], ref[0][both]), why
+        assert torch.equal(got[1][both], ref[1][both]), why
+        if ref[4] is not None:
+            for g, r in zip(got[4], ref[4]):
+                assert torch.equal(g, r), why
+
+
+@pytest.mark.gpu
+def test_track_rows_bit_for_bit_at_the_image_fleet(cuda, monkeypatch):
+    """At the image cell's 64 agents x 15 tracks (and larger batches) cuBLAS
+    sums the plain chain's v^T a in row order, and the kernel rounds each
+    step as the plain chain does: the rows, residuals and MSCKF-SLAM's
+    h1, h2, r1 of the tracks both keep equal the plain chain's bit for bit
+    (what keeps the benchmark's filter step on its plain reference's knife
+    edges, such as the Gram compression's Cholesky)."""
+    _bit_for_bit(cuda, monkeypatch, 64)
+
+
+@pytest.mark.gpu
+def test_track_rows_bit_for_bit_at_the_512_agent_fleet(cuda, monkeypatch):
+    """The same at the 512-agent cell's 512 x 15 tracks: fails loudly where a
+    cuBLAS or torch release sums v^T a in another order at that batch."""
+    _bit_for_bit(cuda, monkeypatch, 512)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("a", [1, 64, 512])
+def test_track_reflect_kernel_is_householder_qt(cuda, dtype, a):
+    """The card's reflections (``track_reflect`` between torch's v^T hf
+    products) against householder_qt's own operations on the card, bit for
+    bit, on dense rows and on rows with an unobserved tail and with no
+    feature Jacobian at all."""
+    g = torch.Generator(device=cuda).manual_seed(a)
+    hf = torch.randn(a, 15, 30, 3, generator=g, device=cuda, dtype=dtype)
+    res = torch.randn(a, 15, 30, generator=g, device=cuda, dtype=dtype)
+    hf[:, 1, 20:] = res[:, 1, 20:] = 0.0
+    hf[:, 2] = 0.0
+    before = track_rows.REFLECT.launches
+    got = track_rows._reflections(hf, res)
+    assert track_rows.REFLECT.launches == before + 4
+    ref = track_rows._reflections_plain(hf, res)
+    for x, y in zip(got, ref):
+        assert torch.equal(x, y)

@@ -102,12 +102,13 @@ def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
 def load(path) -> ctypes.CDLL:
     """A built kernel library with its entry points' signatures set."""
     cdll = ctypes.CDLL(str(path))
-    for name, n_ptr, n_int, n_float in _SIGNATURES:
+    for name, n_ptr, n_int, n_float, n_double in _SIGNATURES:
         fn = getattr(cdll, name)
         fn.argtypes = (
             [ctypes.c_void_p] * n_ptr
             + [ctypes.c_int] * n_int
             + [ctypes.c_float] * n_float
+            + [ctypes.c_double] * n_double
             + [ctypes.c_void_p]  # stream
         )
         fn.restype = ctypes.c_int
@@ -123,13 +124,16 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
-# (C symbol, #pointers, #ints, #floats) — every entry point takes its
-# pointers, then ints, then floats, then the CUDA stream, and returns
-# cudaGetLastError() after the launch
+# (C symbol, #pointers, #ints, #floats, #doubles) — every entry point takes
+# its pointers, then ints, then floats, then doubles, then the CUDA stream,
+# and returns cudaGetLastError() after the launch
 _SIGNATURES = (
-    ("xmat_fast_score_nms", 2, 4, 1),
-    ("xmat_lk_level", 8, 6, 2),
-    ("xmat_stamp", 2, 2, 0),
+    ("xmat_fast_score_nms", 2, 4, 1, 0),
+    ("xmat_lk_level", 8, 6, 2, 0),
+    ("xmat_stamp", 2, 2, 0, 0),
+    ("xmat_track_rows", 19, 8, 0, 1),
+    ("xmat_cov_finite", 2, 3, 0, 0),
+    ("xmat_track_reflect", 5, 4, 0, 0),
 )
 
 

@@ -3,9 +3,10 @@
 
 Per track: residual + pose Jacobians of every observation (with the
 observability-constrained gravity-nullspace projection, Hesch et al. 2012),
-left-nullspace projection of the feature Jacobian, chi2(2m - 3, 0.95) gate.
-Each of the K tracks per agent contributes 2M-3 (padded) rows; gated or
-invalid tracks contribute zero rows.
+left-nullspace projection of the feature Jacobian, chi2(2m - 3, 0.95) gate
+(``track_rows.window_rows``: the hand-written kernel on the card). Each of
+the K tracks per agent contributes 2M-3 (padded) rows; gated or invalid
+tracks contribute zero rows.
 """
 from __future__ import annotations
 
@@ -13,9 +14,9 @@ from typing import NamedTuple
 
 import torch
 
-from ...ops import lie, linalg, triangulation
-from ...utils.chi2 import chi2_gate
+from ...ops import lie, triangulation
 from ...utils.const import constant
+from . import track_rows
 from .common import UpdateRows, oc_project, projection_blocks
 
 GRAVITY = (0.0, 0.0, -9.81)
@@ -59,30 +60,6 @@ def _obs_jacobians(g_p_f, obs, mask, q_arr, p_arr, g_vec, oc: bool):
     )
 
 
-def _assemble_h(j_pos, j_att, m: int, n: int, anchor_pos=None, anchor_att=None,
-                anchor_onehot=None):
-    """Scatter per-obs (A, K, M, 2, 3) blocks into (A, K, 2M, D) at their
-    own window-slot columns (plus, optionally, anchor-slot blocks)."""
-    dtype, dev = j_pos.dtype, j_pos.device
-    eye_m = torch.eye(m, dtype=dtype, device=dev)
-    pos_big = torch.einsum("zkmab,mn->zkmanb", j_pos, eye_m)
-    att_big = torch.einsum("zkmab,mn->zkmanb", j_att, eye_m)
-    if anchor_onehot is not None:
-        pos_big = pos_big + torch.einsum("zkmab,zkn->zkmanb", anchor_pos, anchor_onehot)
-        att_big = att_big + torch.einsum("zkmab,zkn->zkmanb", anchor_att, anchor_onehot)
-    lead = j_pos.shape[:2]
-    h = torch.cat(
-        [
-            torch.zeros(lead + (m, 2, 15), dtype=dtype, device=dev),
-            pos_big.reshape(lead + (m, 2, 3 * m)),
-            att_big.reshape(lead + (m, 2, 3 * m)),
-            torch.zeros(lead + (m, 2, 3 * n), dtype=dtype, device=dev),
-        ],
-        dim=-1,
-    )
-    return h.reshape(lead + (2 * m, 15 + 6 * m + 3 * n))
-
-
 def build(
     obs: torch.Tensor,  # (A, K, M, 2) normalized coords, window-aligned
     mask: torch.Tensor,  # (A, K, M) bool
@@ -116,17 +93,10 @@ def build(
         anchor = torch.zeros((a, k), dtype=torch.int32, device=dev)
         g_p_f = fixed_world
     res, j_pos, j_att, hf, finite = _obs_jacobians(g_p_f, obs, mask, q_arr, p_arr, g_vec, oc)
-    h_j = _assemble_h(j_pos, j_att, m, n_features)
-    h0, res0, _, _ = linalg.nullspace_project(
-        hf.reshape(a, k, 2 * m, 3), h_j, res.reshape(a, k, 2 * m)
+    # nullspace projection and chi2(2m-3, 0.95) gate on the whitened system
+    h0, res0, keep, valid, _ = track_rows.window_rows(
+        res, j_pos, j_att, hf, cov, sigma_img, n_obs, enough & finite, n_features
     )
-    # chi2(2m-3, 0.95) gate on the whitened projected system
-    gamma = linalg.mahalanobis_gamma(cov[:, None], h0 / sigma_img, res0 / sigma_img)
-    inlier = chi2_gate(gamma, 2 * n_obs - 3, 0.95, 2 * m)
-    valid = enough & finite & torch.isfinite(gamma)
-    keep = inlier & valid
-    h0 = torch.where(keep[..., None, None], h0, 0.0)
-    res0 = torch.where(keep[..., None], res0, 0.0)
 
     rows = k * (2 * m - 3)
     update = UpdateRows(

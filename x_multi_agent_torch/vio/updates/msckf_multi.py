@@ -29,7 +29,8 @@ from ...ops import linalg, triangulation
 from ...utils import tree
 from ...utils.chi2 import chi2_gate
 from ...utils.const import constant
-from .msckf import GRAVITY, _assemble_h, _obs_jacobians
+from .msckf import GRAVITY, _obs_jacobians
+from .track_rows import _assemble_h
 
 
 def _participant_rows(g_p_f, obs, mask, q_arr, p_arr, g_vec, n_features: int, oc: bool):

@@ -14,10 +14,9 @@ from typing import NamedTuple
 
 import torch
 
-from ...ops import lie, linalg, triangulation
-from ...utils.chi2 import chi2_gate
+from ...ops import lie, triangulation
+from . import track_rows
 from .common import UpdateRows, projection_blocks
-from .msckf import _assemble_h
 
 
 class MsckfSlamInit(NamedTuple):
@@ -104,16 +103,10 @@ def build(
     )
     finite = (ok | ~mask).all(-1)
 
-    anchor_onehot = is_last.to(dtype)
-    h = _assemble_h(j_pos, j_att, m, n_features, j_anchor_pos, j_anchor_att, anchor_onehot)
-    h0, res0, h1, (r1, h2) = linalg.nullspace_project(
-        hf.reshape(a, k, 2 * m, 3), h, res.reshape(a, k, 2 * m)
+    h0, res0, inlier, _, (h1, h2, r1) = track_rows.window_rows(
+        res, j_pos, j_att, hf, cov, sigma_img, n_obs, enough & finite, n_features,
+        anchor, j_anchor_pos, j_anchor_att,
     )
-    gamma = linalg.mahalanobis_gamma(cov[:, None], h0 / sigma_img, res0 / sigma_img)
-    inlier = (chi2_gate(gamma, 2 * n_obs - 3, 0.95, 2 * m) & enough & finite
-              & torch.isfinite(gamma))
-    h0 = torch.where(inlier[..., None, None], h0, 0.0)
-    res0 = torch.where(inlier[..., None], res0, 0.0)
 
     rows = k * (2 * m - 3)
     update = UpdateRows(

@@ -4,17 +4,16 @@
 For each active SLAM feature with a fresh observation: residual of the last
 observation vs the inverse-depth prediction from the anchor pose; Jacobians
 wrt current pose, anchor pose and feature (anchor == current pose special
-case); chi2(2 * track_length, 0.90) gate. Inactive or gated slots yield zero
-rows.
+case); chi2(2 * track_length, 0.90) gate (``track_rows.slam_rows``: the
+hand-written kernel on the card). Inactive or gated slots yield zero rows.
 """
 from __future__ import annotations
 
 import torch
 
-from ...ops import lie, linalg
-from ...utils.chi2 import chi2_gate
-from .common import (UpdateRows, feature_col, pose_att_col, pose_pos_col,
-                     projection_blocks, scatter_block)
+from ...ops import lie
+from . import track_rows
+from .common import UpdateRows, projection_blocks
 from .msckf_slam import _inv_depth_jac
 
 
@@ -31,9 +30,8 @@ def build(
     sigma_img: float,
     max_track_length: int = 60,
 ) -> UpdateRows:
-    a, m = q_arr.shape[:2]
+    a = q_arr.shape[0]
     n = f_arr.shape[1]
-    d = cov.shape[-1]
     dtype, dev = cov.dtype, cov.device
 
     r_cw_cur = lie.quat_to_rot(q_arr[:, cur_pose_idx]).transpose(-1, -2)[:, None]  # (A,1,3,3)
@@ -59,22 +57,7 @@ def build(
     j_anchor_pos = -j_pos
     hf = (1.0 / rho_b) * j_i @ r_cw_cur @ r_wa @ _inv_depth_jac(alpha, beta, safe_rho)
 
-    h0 = torch.zeros((a, n, 2, d), dtype=dtype, device=dev)
-    feat = torch.arange(n, device=dev)
-    h_gen = scatter_block(h0, j_pos, pose_pos_col(cur_pose_idx, m))
-    h_gen = scatter_block(h_gen, j_att, pose_att_col(cur_pose_idx, m))
-    h_gen = scatter_block(h_gen, j_anchor_pos, pose_pos_col(a_idx, m))
-    h_gen = scatter_block(h_gen, j_anchor_att, pose_att_col(a_idx, m))
-    h_gen = scatter_block(h_gen, hf, feature_col(feat, m))
-    # anchor == current pose: rows are [[1,0,0],[0,1,0]] on the feature block
-    eye_blk = torch.eye(3, dtype=dtype, device=dev)[:2].expand(a, n, 2, 3)
-    h_special = scatter_block(h0, eye_blk, feature_col(feat, m))
-    h_all = torch.where((anchor_idx == cur_pose_idx)[..., None, None], h_special, h_gen)
-
-    gamma = linalg.mahalanobis_gamma(cov[:, None], h_all / sigma_img, res_j / sigma_img)
-    inlier = chi2_gate(gamma, 2 * track_length, 0.90, 2 * max_track_length)
-    keep = active & inlier & finite
-    h_out = torch.where(keep[..., None, None], h_all, 0.0).reshape(a, 2 * n, d)
-    res_out = torch.where(keep[..., None], res_j, 0.0).reshape(a, 2 * n)
-    noise = torch.full((a, 2 * n), sigma_img, dtype=dtype, device=dev)
-    return UpdateRows(h_out, res_out, noise)
+    return UpdateRows(*track_rows.slam_rows(
+        res_j, j_pos, j_att, j_anchor_pos, j_anchor_att, hf, anchor_idx, cov, cur_pose_idx,
+        sigma_img, track_length, active & finite, max_track_length,
+    ), torch.full((a, 2 * n), sigma_img, dtype=dtype, device=dev))
