@@ -56,7 +56,7 @@ Phases (any failure raises, so the exit code is non-zero):
      frame, K2 >= 3 launches per frame;
   7. the request-response fleet: a fresh fleet of the 16 agents with
      tracker descriptors on, 20 frames of ``frame_step``, each followed by
-     ``collab.maybe_add_keyframe``; 64 words trained on the host
+     the compiled keyframe step (``collab.maybe_add_keyframe_fn``); 64 words trained on the host
      (``train_kmajority``, seed 0) from the fleet's frame-0 descriptors; a
      ``request_response_round`` after the 15th and the 20th frame and a
      ``collaborative_msckf_round`` after the 20th, each timed with CUDA
@@ -847,8 +847,8 @@ def run_request_comm(torch, params, tparams, cam, start, frames, imu, device):
             rec["vocab_from"] = int(pool.shape[0])
             db = db_mod.KeyframeDB.zero(db_dims, collab.extract_payload_desc(params, fs, slots))
             kf_meta = collab.KfMeta.zero(a, fs.cov.dtype, device)
-        db, kf_meta, sel = collab.maybe_add_keyframe(params, db_dims, words, fs, slots, db,
-                                                     kf_meta, enabled=applied)
+            keyframe = collab.maybe_add_keyframe_fn(params, db_dims)
+        db, kf_meta, sel = keyframe(db, kf_meta, words, fs, slots, applied)
         n_sel = n_sel + sel.to(torch.int64)
         if k + 1 in RC_ROUNDS:
             (fs, db, hits, n_matches), ms = _timed(torch, lambda: collab.request_response_round(
@@ -1068,7 +1068,7 @@ def exchange_rank(mesh, n_agents, words):
     ``orbit_start``, rendered here) through ``frame_step.CompiledFrameStep``
     with descriptors for ``N_RC`` frames (K1/K2 launched from the tracker's
     graphs and the track-rows kernels from the filter's, counted from their
-    nodes), the keyframe step after each (eager, as in the reference), then
+    nodes), the compiled keyframe step after each, then
     :func:`round_twins` from the state after the last frame. Returns the
     block's pre-round states, the compiled twin's first round outputs, the
     twins' record, the launches of :func:`smoke_kernels` (and whether every
@@ -1107,11 +1107,11 @@ def exchange_rank(mesh, n_agents, words):
     kf_meta = collab.KfMeta.zero(blk, fs.cov.dtype, dev)
     n_applied = torch.zeros((), dtype=torch.int64, device=dev)
     step = CompiledFrameStep(params, tparams, cam, seed=2)
+    keyframe = collab.maybe_add_keyframe_fn(params, db_dims)
     for k in range(N_RC):
         tstate, fs, slots, _, applied = step(tstate, fs, slots, frames[k], times[k], seqs[k],
                                              w_ms[k], a_ms[k], times[k][:, -1])
-        db, kf_meta, _ = collab.maybe_add_keyframe(params, db_dims, words, fs, slots, db,
-                                                   kf_meta, enabled=applied)
+        db, kf_meta, _ = keyframe(db, kf_meta, words, fs, slots, applied)
         n_applied = n_applied + applied.sum()
     launches = {name: k.launches for name, k in kernels.items()}
     pre = tree.map_leaves(torch.clone, (fs, slots, db))  # the step's buffers, kept

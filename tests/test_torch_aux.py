@@ -10,6 +10,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 from scipy.spatial.transform import Rotation
 
 from test_collab import PARAMS
@@ -83,6 +84,25 @@ def test_range_facet_rows_match_jax(active):
     ref = jax.vmap(one)(*map(jnp.asarray, args))
     got = trange.build(*map(t, args[:8]), cur, 0.05, t(act))
     _rows_close(got, ref)
+
+
+def test_range_facet_rows_in_float64_from_float32_image_points():
+    """The image path's measurement carries the tracker's float32 points
+    (``FrameMeasurement.from_matches``) into a float64 filter: the rows are
+    those of the same points given in float64."""
+    rng = np.random.default_rng(2)
+    q, p, f, anchor, cov = _scene(rng)
+    cur = DIMS.n_poses - 1
+    ids = np.array([[0, 1, 2], [3, 4, 5]], np.int32)
+    img_pt = (rng.normal(size=(A, 2)) * 0.05).astype(np.float32)
+    meas = np.array([4.0, 6.0], np.float32)
+    act = t(np.array([True, True]))
+    state = [t(x) for x in (ids, f, anchor, q, p, cov)]
+    got = trange.build(t(meas), t(img_pt), *state, cur, 0.05, act)
+    ref = trange.build(t(meas).double(), t(img_pt).double(), *state, cur, 0.05, act)
+    assert got.jac.dtype == torch.float64 and got.res.dtype == torch.float64
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
 
 
 @pytest.mark.parametrize("at_cur", [False, True])

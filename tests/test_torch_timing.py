@@ -149,6 +149,56 @@ def test_match_frame_makes_no_host_read(recorder):
     assert [lab for iv in got["intervals"] for lab, _ in iv[4]] == ["imu", "rows", "apply"] * 2
 
 
+def test_exchange_round_span_stamps_and_counters(recorder, tmp_path):
+    """The compiled REQUEST_COMM round (``mesh.ShardedRound``, one gloo rank
+    here: its three graph segments): the host span ``round``, the stamps
+    ``vlads``, ``responders``, ``fuse`` and ``wire`` before each collective
+    in stream order inside the segments, the device counters of kept
+    responses and fused matches (summed by the round itself) and the bytes
+    it shipped."""
+    import torch.distributed as dist
+    from test_collab import PARAMS
+    from torch_helpers import mesh_desc_inputs, mesh_four_agents, port_params
+    from x_multi_agent_torch.parallel import collab
+
+    fs, slots, db, words = mesh_four_agents(mesh_desc_inputs())
+    params = port_params(PARAMS)
+    ccfg = collab.CollabConfig(pr_score_thr=0.0, pr_ransac_thr=0.0)
+    mesh = tmesh.make_agent_mesh("gloo", f"file://{tmp_path / 'init'}", 0, 1, "cpu")
+    try:
+        rnd = tmesh.sharded_collab_round_desc(params, ccfg, words, mesh)
+        rnd(fs, slots, db)  # first call: the capture key's buffers
+        recorder.enable()
+        _, _, hits, n = rnd(fs, slots, db)
+        got = recorder.collect()
+    finally:
+        dist.destroy_process_group()
+    assert got["host_calls"]["round"] == 1 and got["frames"] == 1
+    labels = [label for iv in got["intervals"] for label, _ in iv[4]]
+    assert labels == ["vlads", "wire", "responders", "wire", "fuse"]
+    assert got["loose_stamps"] == 0 and got["unmatched"] == 0
+    assert set(got["stage_ms"]) == {"vlads", "wire", "responders", "fuse"}
+    assert got["counters"]["round_hits"] == int(hits.sum()) > 0
+    assert got["counters"]["round_matches"] == int(n.sum())
+    assert got["counters"]["round_bytes"] == 0  # one rank ships nothing to others
+
+
+def test_device_counters_start_from_zero(recorder):
+    recorder.enable()
+    timing.tally("round_hits", torch.ones(3, dtype=torch.bool))
+    timing.count("round_bytes", 7)
+    timing.count("round_bytes", 5)
+    got = recorder.collect()
+    assert got["counters"]["round_hits"] == 3 and got["counters"]["round_bytes"] == 12
+    recorder.start()
+    assert "round_bytes" not in recorder.collect()["counters"]
+    assert recorder.collect()["counters"]["round_hits"] == 0
+    recorder.disable()
+    timing.tally("round_hits", torch.ones(3, dtype=torch.bool))  # off: nothing
+    assert recorder.collect()["counters"]["round_hits"] == 0
+
+
+
 @pytest.mark.parametrize("drift_ppm", [0.0, 40.0])
 def test_calibration_recovers_a_known_offset(drift_ppm):
     """A fake device clock at a known offset (and drift) from the host's,

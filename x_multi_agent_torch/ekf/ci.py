@@ -10,13 +10,18 @@ Two variants, batched over any leading dims:
 
 The solves use the ``_ex`` forms of ``torch.linalg`` (no error check), so
 none of them waits for the card: a singular system gives non-finite values,
-as in the reference, and the callers gate on finiteness.
+as in the reference, and the callers gate on finiteness. A round's joint
+SLAM-SLAM update (``vio/updates/multi_slam.apply_matches``) applies through
+:func:`apply_ci_spd`, which reports where S does not factorize at the
+working precision (ROADMAP C21).
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+
+from ..ops import linalg
 
 
 def _t(x: torch.Tensor) -> torch.Tensor:
@@ -128,8 +133,39 @@ def apply_ci(
     """CI Kalman application: K = ci_P H^T S^-1, P <- sym((I - K H) ci_P).
     LU, not Cholesky: the CI-weighted S need not be PSD with respect to
     ci_P. Returns (correction, new_cov)."""
-    d = cov.shape[-1]
-    k = _t(torch.linalg.solve_ex(s, h @ ci_cov).result)
+    return _gain_update(ci_cov, h, res, _t(torch.linalg.solve_ex(s, h @ ci_cov).result))
+
+
+def _gain_update(ci_cov, h, res, k):
+    """(K res, sym((I - K H) ci_P)) for the gain ``k`` (..., D, r)."""
+    d = ci_cov.shape[-1]
     correction = (k @ res[..., None])[..., 0]
-    new_cov = 0.5 * ((torch.eye(d, dtype=cov.dtype, device=cov.device) - k @ h) @ ci_cov)
+    new_cov = 0.5 * ((torch.eye(d, dtype=ci_cov.dtype, device=ci_cov.device) - k @ h) @ ci_cov)
     return correction, new_cov + _t(new_cov)
+
+
+def apply_ci_spd(
+    cov: torch.Tensor,  # (..., D, D)
+    ci_cov: torch.Tensor,  # (..., D, D)
+    h: torch.Tensor,  # (..., r, D)
+    res: torch.Tensor,  # (..., r)
+    s: torch.Tensor,  # (..., r, r) symmetric positive definite in exact arithmetic
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`apply_ci` for an S that is positive definite in exact
+    arithmetic (the joint SLAM-SLAM update: the CI-weighted own and peer terms
+    plus the landmark noise), solved through its Cholesky factor. Returns
+    (correction, new_cov, ok (...)): ``ok`` is false where S does not
+    factorize at the working precision (a failed factorization, or a pivot
+    no larger than the rounding unit of S's largest diagonal entry: its
+    smallest direction is lost to rounding) or the result is not finite.
+    The caller applies no update where ``ok`` is false (ROADMAP C21): in
+    float32 an S whose entries span more than the precision (the own and
+    peer landmark terms at 10^6 beside the 10^-2 of the landmark noise)
+    gives a gain that turns the covariance non-finite or indefinite."""
+    l, info = torch.linalg.cholesky_ex(s)
+    pivots = torch.diagonal(l, dim1=-2, dim2=-1) ** 2
+    unit = 0.5 * torch.finfo(s.dtype).eps
+    ok = (info == 0) & (pivots.amin(-1) > unit * torch.diagonal(s, dim1=-2, dim2=-1).amax(-1))
+    correction, new_cov = _gain_update(ci_cov, h, res, _t(linalg.cholesky_solve(h @ ci_cov, l)))
+    ok = ok & torch.isfinite(correction).all(-1) & torch.isfinite(new_cov).flatten(-2).all(-1)
+    return correction, new_cov, ok

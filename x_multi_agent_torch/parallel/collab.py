@@ -41,7 +41,7 @@ from ..place_recognition import database as db_mod
 from ..place_recognition.descriptors import knn2_match
 from ..place_recognition.gt_matching import match_landmarks
 from ..place_recognition.vlad import compute_vlad
-from ..utils import graph, tree
+from ..utils import graph, timing, tree
 from ..utils.tree import take, topk_stable
 from ..vio import pipeline
 from ..vio.track_manager import stable_partition
@@ -364,6 +364,21 @@ def maybe_add_keyframe(params: VioParams, db_dims, words: torch.Tensor, fs, slot
     return db, kf_meta, sel
 
 
+def maybe_add_keyframe_fn(params: VioParams, db_dims) -> graph.Compiled:
+    """:func:`maybe_add_keyframe` compiled: one CUDA graph per call on the
+    card, the database and :class:`KfMeta` the carry (``utils/graph.py``:
+    the returned database, bookkeeping and selection are the program's
+    buffers, valid until its next call). Each caller keeps its own program.
+    ``(db, kf_meta, words, fs, slots, enabled (A,) bool) -> (db, kf_meta,
+    selected (A,))``; with the recorder on a call is the host span
+    ``keyframe``."""
+
+    def step(db, kf_meta, words, fs, slots, enabled):
+        return maybe_add_keyframe(params, db_dims, words, fs, slots, db, kf_meta, enabled=enabled)
+
+    return graph.compiled(step, "keyframe", n_carry=2)
+
+
 def process_matches_collab(params: VioParams, ccfg: CollabConfig, db_dims, words, fs, slots,
                            store, db, kf_meta: KfMeta, meas_time, meas):
     """One collaborative visual update: stored cross-agent matches are
@@ -467,7 +482,10 @@ def request_response_round(params: VioParams, ccfg: CollabConfig, words: torch.T
         ns.append(n)
     hits_kept = torch.zeros((a, a), dtype=torch.int32, device=dev).scatter_reduce(
         1, sel.long(), sel_valid.to(torch.int32), "amax") > 0
-    return fs, db, hits_kept, torch.stack(ns, dim=1)
+    n_matches = torch.stack(ns, dim=1)
+    timing.tally("round_hits", hits_kept)
+    timing.tally("round_matches", n_matches)
+    return fs, db, hits_kept, n_matches
 
 
 # ---------------------------------------------------------------------------

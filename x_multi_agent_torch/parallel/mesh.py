@@ -255,20 +255,36 @@ def sharded_step(params: vio_mod.VioParams, mesh: AgentMesh):
     return agent_step_fn(params)
 
 
+def _stamp(label: str, state) -> None:
+    """The recorder's device stamp ``label`` on the device of ``state``'s
+    first tensor (one flag check while the recorder is off)."""
+    if timing.enabled():
+        timing.stamp(label, next(x for x in tree.leaves(state) if isinstance(x, torch.Tensor)))
+
+
 def _run(mesh: AgentMesh, segments, collectives, state: tuple, shipped: dict):
     """A round's segments in order, collective i between segments i and
     i + 1, run where they stand: the plain round, and with NCCL the body of
     its one graph. Segment i takes (state, what collective i - 1 delivered)
     and returns (state, what collective i ships); the last returns (state,
     the round's other outputs). Records each collective's bytes in
-    ``shipped``. Returns (state, outputs)."""
+    ``shipped``. With the recorder on, each segment starts with a device
+    stamp of its name and each collective with the stamp ``wire`` (its
+    stage ends at the next segment's stamp). Returns (state, outputs)."""
     got = None
     for i, seg in enumerate(segments):
+        _stamp(seg.__name__, state)
         state, put = seg(state, got)
         if i < len(collectives):
             name, kind = collectives[i]
+            _stamp("wire", state)
             got, shipped[name] = _collective(mesh, kind, put)
     return state, put
+
+
+def _count_round(shipped: dict) -> None:
+    """The recorder's ``round_bytes``: what one round shipped from this rank."""
+    timing.count("round_bytes", sum(shipped.values()))
 
 
 class ShardedRound(graph.Programs):
@@ -289,7 +305,9 @@ class ShardedRound(graph.Programs):
     and the graphs' outputs, valid until its next call, and adds each
     collective's bytes (fixed by the shapes) to ``mesh.shipped``, as the
     plain round does. A capture or replay that fails raises, naming the
-    program; nothing falls back to the plain round."""
+    program; nothing falls back to the plain round. With the recorder on, a
+    call is the host span ``round`` and its graphs hold the stamps of
+    :func:`_run` (the segments' names, ``wire``)."""
 
     def __init__(self, mesh: AgentMesh, name: str, segments, collectives, n_carry: int,
                  arrange: Callable):
@@ -301,13 +319,15 @@ class ShardedRound(graph.Programs):
         self.n_carry, self.arrange = n_carry, arrange
 
     def __call__(self, *args):
-        dev, bufs, prog = self.get(self.arrange(*args), self._build, n_carry=self.n_carry)
-        for i, g in enumerate(prog["graphs"]):
-            outs = g(dev)
-            if i < len(prog["graphs"]) - 1:
-                self._host_step(prog, i, outs[0])
-        for name, n in prog["shipped"].items():
-            _count(self.mesh, name, n)
+        with timing.frame(), timing.span("round"):
+            dev, bufs, prog = self.get(self.arrange(*args), self._build, n_carry=self.n_carry)
+            for i, g in enumerate(prog["graphs"]):
+                outs = g(dev)
+                if i < len(prog["graphs"]) - 1:
+                    self._host_step(prog, i, outs[0])
+            for name, n in prog["shipped"].items():
+                _count(self.mesh, name, n)
+            _count_round(prog["shipped"])
         return tuple(bufs[:self.n_carry]) + tuple(outs)
 
     def _build(self, bufs, label: str) -> dict:
@@ -323,12 +343,14 @@ class ShardedRound(graph.Programs):
             def body():
                 got = None if i == 0 else _got(prog["recv"][i - 1], prog["template"][i - 1],
                                                self.mesh.world_size)
+                _stamp(segs[i].__name__, bufs)
                 state, put = segs[i](bufs, got)
                 graph.write_carry(bufs[:n], state[:n], self.name)
                 if i == len(segs) - 1:
                     return put
                 send, prog["template"][i] = _put(self.collectives[i][1], put,
                                                  self.mesh.world_size)
+                _stamp("wire", bufs)
                 return (send,)
             return body
 
@@ -360,11 +382,13 @@ def _round(mesh: AgentMesh, name: str, segments, collectives, n_carry: int, comp
         return ShardedRound(mesh, name, segments, collectives, n_carry, arrange)
 
     def plain(*args):
-        linalg.require_fp32_matmul(mesh.device, name)
-        shipped = {}
-        state, outs = _run(mesh, segments, collectives, arrange(*args), shipped)
-        for key, nbytes in shipped.items():
-            _count(mesh, key, nbytes)
+        with timing.frame(), timing.span("round"):
+            linalg.require_fp32_matmul(mesh.device, name)
+            shipped = {}
+            state, outs = _run(mesh, segments, collectives, arrange(*args), shipped)
+            for key, nbytes in shipped.items():
+                _count(mesh, key, nbytes)
+            _count_round(shipped)
         return tuple(state[:n_carry]) + tuple(outs)
 
     return plain
@@ -470,7 +494,10 @@ def sharded_collab_round_desc(params: vio_mod.VioParams, ccfg: collab.CollabConf
             ns.append(n)
         hits = torch.zeros((blk, a), dtype=torch.int32, device=dev).scatter_reduce(
             1, sel.long(), sel_valid.to(torch.int32), "amax") > 0
-        return (fs_blk, db_blk, slots_blk), (hits, torch.stack(ns, dim=1))
+        n_matches = torch.stack(ns, dim=1)
+        timing.tally("round_hits", hits)
+        timing.tally("round_matches", n_matches)
+        return (fs_blk, db_blk, slots_blk), (hits, n_matches)
 
     return _round(mesh, "sharded_collab_round_desc", (vlads, responders, fuse),
                   (("vlads", "all_gather"), ("keyframes", "all_to_all")), 2, compiled,

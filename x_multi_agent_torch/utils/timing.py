@@ -15,9 +15,15 @@ module-level flag and returns.
   captured while it is off holds none, and enabling the recorder later adds
   none. Nothing reads the ring until :func:`collect`. On CPU tensors a stamp
   is a host-clock record at the same place.
-* **Counters** (:func:`count`): ``host_syncs`` (each device-to-host read of
-  the main path) and ``detect_frames`` (tracker calls whose gate took the
-  detection branch).
+* **Counters** (:func:`count`, on the host): ``host_syncs`` (each
+  device-to-host read of the main path), ``detect_frames`` (tracker calls
+  whose gate took the detection branch) and ``round_bytes`` (the bytes a
+  rank's exchange rounds shipped to the other ranks, ``mesh.shipped``).
+  **Device counters** (:func:`tally`): ``round_hits`` and ``round_matches``
+  (each round's kept responses and fused matches) and ``ci_dropped`` (the
+  matches a joint SLAM-SLAM update kept but did not apply, its S not
+  factorizing: ROADMAP C21), summed on the device by the round itself
+  (inside its graph) and read once by :func:`collect`.
 
 :func:`enable` turns the recorder on (before the programs capture their
 graphs), :func:`start` drops what was recorded so far and calibrates the
@@ -55,6 +61,9 @@ _ids: dict = {}
 # device index -> (ring (n, 2) int64, cursor (1,) int64), kept for the
 # process's life: the graphs that stamp into a ring hold its address
 _rings: dict = {}
+# (device, name) -> (1,) int64 device counter, kept for the process's life
+# for the same reason
+_tallies: dict = {}
 
 
 class _Recording:
@@ -124,10 +133,25 @@ def frame():
     return _Span("frame", None)
 
 
-def count(name: str) -> None:
+def count(name: str, n: int = 1) -> None:
     if not _ON:
         return
-    _rec.counters[name] += 1
+    _rec.counters[name] += n
+
+
+def tally(name: str, value: torch.Tensor) -> None:
+    """Add the sum of ``value`` to the device counter ``name`` on its device,
+    with no host read (inside a graph captured with the recorder on, the
+    add is one of its nodes)."""
+    if not _ON:
+        return
+    key = (value.device, name)
+    t = _tallies.get(key)
+    if t is None:
+        if value.is_cuda and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the recorder's counters are made by the eager run before a capture")
+        t = _tallies[key] = torch.zeros((1,), dtype=torch.int64, device=value.device)
+    t.add_(value.sum().to(torch.int64))
 
 
 def _id(kind: str, name: str) -> int:
@@ -247,6 +271,8 @@ def start() -> None:
     _rec = _Recording(_rec.capacity)
     for _, cursor in _rings.values():
         cursor.zero_()
+    for t in _tallies.values():
+        t.zero_()
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         dev = torch.device("cuda", torch.cuda.current_device())
         _rec.calibration[dev.index] = calibrate(_cuda_sample(dev))
@@ -306,6 +332,9 @@ def collect() -> dict:
     frame, begin, end, [(stage, ns)]], host ns)."""
     rec = _rec
     lost = rec.lost
+    counters = collections.Counter(rec.counters)
+    for (_, name), t in _tallies.items():
+        counters[name] += int(t[0])  # waits for the device: after the window
     streams, clock = [list(rec.host_stamps)], {}
     for index, (ring, cursor) in _rings.items():
         dev = ring.device
@@ -356,7 +385,7 @@ def collect() -> dict:
     return {
         "frames": sum(1 for s in spans if s[0] == "frame" and s[1] is None),
         "host_ms": dict(host_ms), "host_calls": dict(host_calls),
-        "counters": dict(rec.counters),
+        "counters": dict(counters),
         "stage_ms": dict(stage_ms), "graph_ms": dict(graph_ms), "graph_calls": dict(graph_calls),
         "busy_ms": math.fsum(graph_ms.values()),
         "gap_ms": dict(gap_ms), "gap_total_ms": math.fsum(gap_ms.values()),

@@ -17,7 +17,7 @@ import torch
 from ...ekf import ci as ci_mod
 from ...ekf.state import StateDims, correct_core, correct_vision
 from ...ops import lie, linalg
-from ...utils import tree
+from ...utils import timing, tree
 from ...utils.chi2 import chi2_threshold
 from ...utils.tree import take
 from .msckf_slam import _inv_depth_jac
@@ -210,7 +210,6 @@ def apply_matches(
     # and res make them no-ops
     s_full = (torch.where(keep3[:, :, None] & keep3[:, None, :], s_full, 0.0)
               + torch.diag_embed(torch.where(keep3, 0.0, 1.0).to(dtype)))
-    n_app = keep.sum(1).to(torch.int32)
 
     # congruence-scale every own block a kept match touches (see
     # apply_matches_pairs)
@@ -222,7 +221,11 @@ def apply_matches(
     )
     scale = torch.where(hits > 0, sq, 1.0)
     ci_p = cov * scale[:, :, None] * scale[:, None, :]
-    corr, cov1 = ci_mod.apply_ci(cov, ci_p, h, res, s_full)
+    corr, cov1, solved = ci_mod.apply_ci_spd(cov, ci_p, h, res, s_full)
+    # no update where S does not factorize (ROADMAP C21): no match is applied
+    timing.tally("ci_dropped", torch.where(solved, 0, keep.sum(1)))
+    keep = keep & solved[:, None]
+    n_app = keep.sum(1).to(torch.int32)
     do = n_app > 0
     core = tree.where(do, correct_core(core, corr), core)
     vision = tree.where(do, correct_vision(vision, corr, dims), vision)

@@ -53,6 +53,7 @@ def build(
     a, m = q_arr.shape[:2]
     d = cov.shape[-1]
     dtype, dev = cov.dtype, cov.device
+    img_pt_n = img_pt_n.to(dtype)  # the tracker's float32 points beside a float64 filter
 
     f3 = take(f_arr, tr_feat_ids)  # (A, 3, 3)
     a3 = take(anchor_idx, tr_feat_ids)  # (A, 3)
