@@ -267,14 +267,10 @@ def _repropagate_tail(params: EkfParams, fs: FilterState, idx) -> FilterState:
     return dataclasses.replace(fs, buffer=buf)
 
 
-def process_update_aux_impl(params: EkfParams, fs: FilterState, meas_time, update_fn, aux):
-    """Measurement update at ``meas_time`` (A,) threading an auxiliary state
-    (e.g. track slots) through
-    ``update_fn(core, vision, cov, aux) -> (core, vision, cov, aux)``.
-    Returns (fs, aux, applied (A,)).
-
-    Every agent runs ``update_fn``; agents whose measurement falls outside
-    the window keep their state (per-agent select)."""
+def update_window(params: EkfParams, fs: FilterState, meas_time):
+    """Where a measurement at ``meas_time`` (A,) updates: its buffer slot
+    ``idx`` (A,), whether it falls in the window (A,), and the anchored
+    covariance propagated to ``idx``."""
     b = params.dims.buffer_size
     t_buf = rb.times(fs.buffer)
     idx = rb.closest_idx(t_buf, meas_time.to(fs.cov.dtype), params.time_margin)
@@ -286,16 +282,34 @@ def process_update_aux_impl(params: EkfParams, fs: FilterState, meas_time, updat
         & (rb.steps_between(fs.anchor_buf_idx, idx, b) < params.max_update_lag)
         & (t_idx >= anchor_t)
     )
+    return idx, in_window, _cov_at(params, fs, idx)
 
-    cov_meas = _cov_at(params, fs, idx)
-    core = rb.get_slot(fs.buffer, idx)
-    core1, vision1, cov1, aux1 = update_fn(core, fs.vision, cov_meas, aux)
+
+def close_update(params: EkfParams, fs: FilterState, idx, in_window, core, vision,
+                 cov) -> FilterState:
+    """Write an update's result at slot ``idx`` (A,), anchor the covariance
+    there and re-propagate the tail, for the agents ``in_window`` (A,)."""
     upd = dataclasses.replace(
-        fs, buffer=rb.set_slot(fs.buffer, idx, core1), cov=cov1, vision=vision1,
+        fs, buffer=rb.set_slot(fs.buffer, idx, core), cov=cov, vision=vision,
         anchor_buf_idx=idx,
     )
     upd = _repropagate_tail(params, upd, idx)
-    return tree.where(in_window, upd, fs), tree.where(in_window, aux1, aux), in_window
+    return tree.where(in_window, upd, fs)
+
+
+def process_update_aux_impl(params: EkfParams, fs: FilterState, meas_time, update_fn, aux):
+    """Measurement update at ``meas_time`` (A,) threading an auxiliary state
+    (e.g. track slots) through
+    ``update_fn(core, vision, cov, aux) -> (core, vision, cov, aux)``.
+    Returns (fs, aux, applied (A,)).
+
+    Every agent runs ``update_fn``; agents whose measurement falls outside
+    the window keep their state (per-agent select)."""
+    idx, in_window, cov_meas = update_window(params, fs, meas_time)
+    core = rb.get_slot(fs.buffer, idx)
+    core1, vision1, cov1, aux1 = update_fn(core, fs.vision, cov_meas, aux)
+    fs1 = close_update(params, fs, idx, in_window, core1, vision1, cov1)
+    return fs1, tree.where(in_window, aux1, aux), in_window
 
 
 def process_update(params: EkfParams, fs: FilterState, meas_time, update_fn):

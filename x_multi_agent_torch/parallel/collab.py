@@ -135,6 +135,65 @@ def fresh_recency(slots) -> tuple:
     )
 
 
+def _desc_matches(ccfg: CollabConfig, own_desc, own_desc_valid, own_pts, peer: AgentPayload,
+                  head, sampler):
+    """The gates of a descriptor fusion that read no fused state, per row
+    (own leaves (R, N, ...), ``peer`` (R, ...), ``head`` (R,)): kNN(2) with
+    the ratio and absolute gates on the SLAM-track descriptors, then, when
+    ``pr_ransac_thr > 0``, the epipolar RANSAC over the matched last
+    observations ``own_pts`` (normalized coordinates), its indices from
+    ``sampler`` keyed on (7, peer.time, head). Every row is gated on its
+    own. Returns (other_idx, ok) (R, N)."""
+    other_idx, ok = knn2_match(
+        own_desc, own_desc_valid, peer.slam_desc, peer.slam_desc_valid,
+        ccfg.desc_ratio_thr, ccfg.desc_abs_thr,
+    )
+    if ccfg.pr_ransac_thr > 0:
+        idx = sampler(ok, 7, peer.time, head)
+        ok = ok & ransac_inliers(own_pts, take(peer.slam_obs, other_idx), ok, idx,
+                                 ccfg.pr_ransac_thr)
+    return other_idx, ok
+
+
+def _consistency_gate(dims, ccfg: CollabConfig, vision, peer: AgentPayload, other_idx, ok):
+    """The pairwise-distance consistency gate on the matched SLAM landmarks,
+    which reads the fused state (``vision``): each kept match must agree,
+    |d(own_i, own_j) - d(peer_i', peer_j')| < tol, with at least half of
+    the others (>= 1)."""
+    own_lm, own_lm_valid = slam_landmarks_world(dims, vision)
+    ok = ok & own_lm_valid & take(peer.landmark_valid, other_idx)
+    peer_lm = take(peer.landmarks, other_idx)
+    d_own = torch.linalg.norm(own_lm[:, :, None] - own_lm[:, None], dim=-1)
+    d_peer = torch.linalg.norm(peer_lm[:, :, None] - peer_lm[:, None], dim=-1)
+    n = own_lm.shape[1]
+    cons = (
+        (torch.abs(d_own - d_peer) < ccfg.geom_consistency_tol)
+        & ok[:, None, :] & ok[:, :, None]
+        & ~torch.eye(n, dtype=torch.bool, device=ok.device)
+    )
+    support = torch.sum(cons, dim=2)
+    n_ok = torch.sum(ok, dim=1, keepdim=True)
+    return ok & (support >= torch.clamp((n_ok - 1) // 2, min=1))
+
+
+def _budget(ccfg: CollabConfig, ok, other_idx, peer_valid):
+    """The first ``match_budget`` surviving matches, per row: (own slots,
+    peer slots, valid), each (R, match_budget)."""
+    order = stable_partition(ok)[:, : ccfg.match_budget]
+    return order, take(other_idx, order), take(ok, order) & peer_valid[:, None]
+
+
+def _fuse_matches(dims, ccfg: CollabConfig, core, vision, cov, peer: AgentPayload, order,
+                  other_sel, mvalid):
+    """One joint CI update of the budgeted matches. Returns (core, vision,
+    cov, n_applied (A,), applied (A, match_budget))."""
+    return multi_slam.apply_matches(
+        dims, core, vision, cov,
+        peer.p_arr, peer.q_arr, peer.f_arr, peer.anchor_idx, peer.lm_cov,
+        order, other_sel, mvalid, ccfg.sigma_landmark, ccfg.ci_slam_w,
+    )
+
+
 def fuse_with_peer_desc(params: VioParams, ccfg: CollabConfig, fs, slots, peer: AgentPayload,
                         peer_valid: torch.Tensor, recency=None, sampler=None):
     """Descriptor-based SLAM-SLAM fusion, every agent against its own peer
@@ -156,46 +215,19 @@ def fuse_with_peer_desc(params: VioParams, ccfg: CollabConfig, fs, slots, peer: 
         sampler = KeyedSampler()
 
     def update_fn(core, vision, cov, aux):
-        other_idx, ok = knn2_match(
-            slots.slam_desc, slots.slam_desc_valid, peer.slam_desc, peer.slam_desc_valid,
-            ccfg.desc_ratio_thr, ccfg.desc_abs_thr,
-        )
-        if ccfg.pr_ransac_thr > 0:
-            # geometric verification: epipolar RANSAC over the matched last
-            # observations (normalized coordinates)
-            own_pts = slots.slam_obs[:, :, dims.n_poses - 1]
-            peer_pts = take(peer.slam_obs, other_idx)
-            idx = sampler(ok, 7, peer.time, fs.head)
-            ok = ok & ransac_inliers(own_pts, peer_pts, ok, idx, ccfg.pr_ransac_thr)
+        other_idx, ok = _desc_matches(ccfg, slots.slam_desc, slots.slam_desc_valid,
+                                      slots.slam_obs[:, :, dims.n_poses - 1], peer, fs.head,
+                                      sampler)
         if ccfg.geom_consistency_tol > 0:
-            own_lm, own_lm_valid = slam_landmarks_world(dims, vision)
-            ok = ok & own_lm_valid & take(peer.landmark_valid, other_idx)
-            peer_lm = take(peer.landmarks, other_idx)
-            d_own = torch.linalg.norm(own_lm[:, :, None] - own_lm[:, None], dim=-1)
-            d_peer = torch.linalg.norm(peer_lm[:, :, None] - peer_lm[:, None], dim=-1)
-            n = own_lm.shape[1]
-            cons = (
-                (torch.abs(d_own - d_peer) < ccfg.geom_consistency_tol)
-                & ok[:, None, :] & ok[:, :, None]
-                & ~torch.eye(n, dtype=torch.bool, device=ok.device)
-            )
-            support = torch.sum(cons, dim=2)
-            n_ok = torch.sum(ok, dim=1, keepdim=True)
-            # each kept match agrees with at least half of the others (>= 1)
-            ok = ok & (support >= torch.clamp((n_ok - 1) // 2, min=1))
+            ok = _consistency_gate(dims, ccfg, vision, peer, other_idx, ok)
         rec = aux[1]
         if use_cooldown:
             last_id, last_cnt, cnt = rec
             fresh = (slots.slam_id != last_id) | (cnt[:, None] - last_cnt >= ccfg.refuse_cooldown)
             ok = ok & fresh
-        order = stable_partition(ok)[:, : ccfg.match_budget]
-        mvalid = take(ok, order) & peer_valid[:, None]
-        core, vision, cov, n_app, applied = multi_slam.apply_matches(
-            dims, core, vision, cov,
-            peer.p_arr, peer.q_arr, peer.f_arr, peer.anchor_idx, peer.lm_cov,
-            order, take(other_idx, order), mvalid,
-            ccfg.sigma_landmark, ccfg.ci_slam_w,
-        )
+        order, other_sel, mvalid = _budget(ccfg, ok, other_idx, peer_valid)
+        core, vision, cov, n_app, applied = _fuse_matches(dims, ccfg, core, vision, cov, peer,
+                                                          order, other_sel, mvalid)
         if use_cooldown:
             last_id = tree.put(last_id, order, torch.where(
                 applied, take(slots.slam_id, order), take(last_id, order)))
@@ -211,6 +243,79 @@ def fuse_with_peer_desc(params: VioParams, ccfg: CollabConfig, fs, slots, peer: 
         (torch.zeros_like(fs.head), recency),
     )
     return fs, n_applied, recency1
+
+
+def fuse_chain_desc(params: VioParams, ccfg: CollabConfig, fs, slots, kf_by_req: AgentPayload,
+                    sel: torch.Tensor, sel_valid: torch.Tensor, sampler=None):
+    """Every requester fuses its K responses in order: the result of K calls
+    of :func:`fuse_with_peer_desc` (no cooldown) in a row, call k against
+    ``kf_by_req[sel[:, k], r]`` for requester r, bit for bit, with only
+    what reads the fused state inside the chain.
+
+    ``kf_by_req``: the responses, leaves (P responders, A requesters, ...);
+    ``sel`` (A, K) each requester's responders in fusion order, ``sel_valid``
+    (A, K) which of them carry a hit.
+
+    Each call measures at the buffer head's time, so its slot, its window
+    and the anchor's move there are the first call's, and every later call
+    would propagate the covariance by an identity and re-propagate a tail
+    the next call overwrites. So, once before the chain: the slot, the
+    window and the covariance propagated to the slot; over all A x K pairs
+    at once, the gates that read no fused state (kNN, RANSAC). The chain,
+    k = 0..K-1: the consistency gate (``geom_consistency_tol > 0``, it
+    reads the fused landmarks), the budget, the joint CI update, agents
+    outside the window held at their start. Once after it: the write-back
+    and the tail.
+
+    With the recorder on, tallies ``round_propagated`` (the requesters in
+    the window whose anchor lay behind the slot). Returns (fs, n_matches
+    (A, K))."""
+    dims = params.cfg.dims
+    a, k = sel.shape
+    if k == 0:
+        return fs, torch.zeros((a, 0), dtype=torch.int32, device=sel.device)
+    if sampler is None:
+        sampler = KeyedSampler()
+    b = sel.long()
+    rows = torch.arange(a, device=b.device)[:, None]
+
+    def pair(x):  # (P, A, ...) -> (A, K, ...): requester r's k-th response
+        return x[b, rows]
+
+    def flat(x):
+        return x.reshape((a * k,) + x.shape[2:])
+
+    def rep(x):
+        return flat(x[:, None].expand((a, k) + x.shape[1:]))
+
+    def unflat(x):
+        return x.reshape((a, k) + x.shape[1:])
+
+    ekf_p = params.ekf_params
+    idx, in_window, cov0 = ekf_mod.update_window(ekf_p, fs, _buffer_time(fs, fs.head))
+    timing.tally("round_propagated",
+                 in_window & (rb.steps_between(fs.anchor_buf_idx, idx, dims.buffer_size) > 0))
+
+    peers = tree.map_leaves(pair, kf_by_req)
+    other_idx, ok = _desc_matches(ccfg, rep(slots.slam_desc), rep(slots.slam_desc_valid),
+                                  rep(slots.slam_obs[:, :, dims.n_poses - 1]),
+                                  tree.map_leaves(flat, peers), rep(fs.head), sampler)
+    other_idx, ok = unflat(other_idx), unflat(ok)
+
+    start = (rb.get_slot(fs.buffer, idx), fs.vision, cov0)
+    carry = start
+    ns = []
+    for j in range(k):
+        peer = tree.map_leaves(lambda x: x[:, j], peers)
+        ok_j = ok[:, j]
+        if ccfg.geom_consistency_tol > 0:
+            ok_j = _consistency_gate(dims, ccfg, carry[1], peer, other_idx[:, j], ok_j)
+        step = _budget(ccfg, ok_j, other_idx[:, j], sel_valid[:, j])
+        core, vision, cov, n_app, _ = _fuse_matches(dims, ccfg, *carry, peer, *step)
+        carry = tree.where(in_window, (core, vision, cov), start)
+        ns.append(n_app)
+    fs = ekf_mod.close_update(ekf_p, fs, idx, in_window, *carry)
+    return fs, torch.where(in_window[:, None], torch.stack(ns, dim=1), 0)
 
 
 def collaborative_round(params: VioParams, ccfg: CollabConfig, fs):
@@ -445,8 +550,8 @@ def request_response_round(params: VioParams, ccfg: CollabConfig, words: torch.T
     over responders: responder b answers requester r with its best unserved
     keyframe above ``pr_score_thr`` (a self-request marks it served but is
     no hit). Each requester then fuses its hits (its top ``top_k_peers`` by
-    score) with :func:`fuse_with_peer_desc`, in responder order, each
-    gathering its own responder's keyframe.
+    score) in responder order with :func:`fuse_chain_desc`, each response
+    its own responder's keyframe.
 
     Returns (fs, db, hits (A requesters, A responders), n_matches (A, K)).
     Raises when A exceeds the served bitmap (``DbDims.max_agents``), and on
@@ -472,17 +577,11 @@ def request_response_round(params: VioParams, ccfg: CollabConfig, words: torch.T
     score_grid = torch.stack(score_cols, 1)
 
     sel, sel_valid = top_k_select(hit_grid.T, score_grid.T, ccfg.top_k_peers)
-    ns = []
-    for kk in range(sel.shape[1]):
-        b = sel[:, kk].long()  # (A,) each requester's responder
-        kf_row = kf_idx[b, ids].long()
-        kf = tree.map_leaves(lambda x: x[b, kf_row], db.payload)
-        fs, n, _ = fuse_with_peer_desc(params, ccfg, fs, slots, kf, sel_valid[:, kk],
-                                       sampler=sampler)
-        ns.append(n)
+    kf_by_req = tree.map_leaves(lambda x: take(x, kf_idx), db.payload)
+    fs, n_matches = fuse_chain_desc(params, ccfg, fs, slots, kf_by_req, sel, sel_valid,
+                                    sampler=sampler)
     hits_kept = torch.zeros((a, a), dtype=torch.int32, device=dev).scatter_reduce(
         1, sel.long(), sel_valid.to(torch.int32), "amax") > 0
-    n_matches = torch.stack(ns, dim=1)
     timing.tally("round_hits", hits_kept)
     timing.tally("round_matches", n_matches)
     return fs, db, hits_kept, n_matches

@@ -440,9 +440,9 @@ def sharded_collab_round_desc(params: vio_mod.VioParams, ccfg: collab.CollabConf
          the requesters' ranks as (A responders, blk requesters); a miss
          carries a zero payload, so the shapes are fixed;
       4. each local requester keeps its ``top_k_peers`` best responders
-         (``collab.top_k_select``) and fuses them with
-         ``collab.fuse_with_peer_desc`` (RANSAC draws keyed on each
-         agent's state, ``KeyedSampler()``).
+         (``collab.top_k_select``) and fuses them in order with
+         ``collab.fuse_chain_desc`` (RANSAC draws keyed on each agent's
+         state, ``KeyedSampler()``).
 
     Returns ``(fs_blk, slots_blk, db_blk) -> (fs_blk, db_blk, hits (blk, A
     responders), n_matches (blk, K))``, equal to the rows of
@@ -484,17 +484,10 @@ def sharded_collab_round_desc(params: vio_mod.VioParams, ccfg: collab.CollabConf
         kf_by_req, hit_by_req, score_by_req = got
         blk, a = fs_blk.cov.shape[0], hit_by_req.shape[0]
         sel, sel_valid = collab.top_k_select(hit_by_req.T, score_by_req.T, ccfg.top_k_peers)
-        ar = torch.arange(blk, device=dev)
-        ns = []
-        for kk in range(sel.shape[1]):
-            b = sel[:, kk].long()
-            kf = tree.map_leaves(lambda x: x[b, ar], kf_by_req)
-            fs_blk, n, _ = collab.fuse_with_peer_desc(params, ccfg, fs_blk, slots_blk, kf,
-                                                      sel_valid[:, kk])
-            ns.append(n)
+        fs_blk, n_matches = collab.fuse_chain_desc(params, ccfg, fs_blk, slots_blk, kf_by_req,
+                                                   sel, sel_valid)
         hits = torch.zeros((blk, a), dtype=torch.int32, device=dev).scatter_reduce(
             1, sel.long(), sel_valid.to(torch.int32), "amax") > 0
-        n_matches = torch.stack(ns, dim=1)
         timing.tally("round_hits", hits)
         timing.tally("round_matches", n_matches)
         return (fs_blk, db_blk, slots_blk), (hits, n_matches)
