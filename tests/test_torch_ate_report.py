@@ -411,3 +411,59 @@ def test_ate_report_defaults_to_the_card():
         _build_agent(META, False, None, None, 0, collab=False)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         tar.replay_dataset_dir("unused")
+
+
+# ---------------------------------------------------------------------------
+# (f) on the card (``gpu``-marked, skipped here)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_report_on_the_card(tmp_path, monkeypatch):
+    """The report as its CLI runs it with ``--vocab random --duration 3``
+    (4 agents at 480x640, agent 1 degraded, rounds after frames 19 and 29),
+    its dataset rendered on the card into ``tmp_path``: every position
+    finite, no re-initialization solo or collaborative, every helper's
+    collaborative aligned ATE under 1 m, the full broadcast a payload to
+    each of the 12 ordered pairs on each frame after frame 10, the kernels
+    launched (K1, K2 on each level of every agent-frame after the first,
+    the track rows on every update); and every facade the report built,
+    once dropped, freed with its graphs."""
+    import gc
+    import glob
+    import json
+    import weakref
+
+    from x_multi_agent_torch.vio.updates import track_rows
+    from x_multi_agent_torch.vision import fast, lk
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    built = []
+
+    def tracked(*a, **kw):
+        v = _build_agent(*a, **kw)
+        built.append(weakref.ref(v))
+        return v
+
+    monkeypatch.setattr(tar, "DATASET_ROOT", str(tmp_path))
+    monkeypatch.setattr(tar, "build_agent", tracked)
+    args = tar.parse_args(["--vocab", "random", "--duration", "3"])
+    kernels = (fast.K1, lk.K2, track_rows.TRACK_ROWS)
+    before = [k.launches for k in kernels]
+    rep, agents = tar.run_report(args, device="cuda")
+    n_k1, n_k2, n_rows = (k.launches - n for k, n in zip(kernels, before))
+    na, n_frames = args.agents, int(args.duration * 10)
+    solo = [json.load(open(f)) for f in sorted(glob.glob(str(tmp_path / "solo_a*.json")))]
+    traces = [f"trace_solo_a{a}.npz" for a in range(na)] + ["trace_collab.npz"]
+    assert all(np.isfinite(np.load(tmp_path / f)["est"]).all() for f in traces)
+    assert len(solo) == na and not any(s["n_reinits"][0] for s in solo)
+    assert not any(rep["per_agent"]["n_reinits"])
+    assert rep["gates"]["helpers_converged_collab"], rep["per_agent"]["ate_collab_m"]
+    payload = tcollab.payload_nbytes(agents[0].get_data_to_send())
+    assert rep["request_comm"]["bytes_full_broadcast"] == payload * na * (na - 1) * (n_frames - 11)
+    assert n_k1 >= 2 * na and n_k2 >= 3 * 2 * na * (n_frames - 1) and n_rows >= 3 * 2 * na
+    del rep, agents
+    gc.collect()
+    assert len(built) == 2 * na and not [r for r in built if r() is not None]

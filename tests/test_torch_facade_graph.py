@@ -36,7 +36,7 @@ import torch
 from test_torch_graph import CaptureWitness
 from x_multi_agent_torch import configs
 from x_multi_agent_torch.parallel import collab
-from x_multi_agent_torch.utils import ate_report, graph, tree
+from x_multi_agent_torch.utils import ate_report, graph, scene, tree
 from x_multi_agent_torch.utils.bench import orbit_frames
 from x_multi_agent_torch.vio import track_manager as tm
 from x_multi_agent_torch.vio import vio as tvio
@@ -459,12 +459,22 @@ def _twins(make, step, n):
     return runs[True]
 
 
+def _thermal(frames, device):
+    """Frames (n, h, w) as a thermal camera gives them: the gains drifting
+    a = 1 + 0.01 k, b = 0.002 k (the reference's thermal e2e test), the
+    accuracy report's vignette 0.06 and noise 0.006, uint8."""
+    gains = [(1.0 + 0.01 * k, 0.002 * k) for k in range(frames.shape[0])]
+    return scene.degrade_frames(frames, gains, 0.06, 0.006,
+                                torch.Generator(device=device).manual_seed(9))
+
+
 def _facade_twins(path: str, device, n: int):
     """:func:`_twins` on one facade path in float32: ``match`` (the circle
     simulation, per-sample IMU and windows, the range and sun rows, debug
-    on), ``image`` (orbit frames, the spatial photometric calibration) or
-    ``pair`` (two such facades collaborating, exchanging full payloads every
-    frame). Returns the compiled facades."""
+    on), ``image`` (orbit frames, the spatial photometric calibration),
+    ``thermal`` (the same on :func:`_thermal` frames) or ``pair`` (two
+    ``image`` facades collaborating, exchanging full payloads every frame).
+    Returns the compiled facades."""
     params = _params("float32", aux=path == "match")
     if path == "match":
         sim = _circle_sim(1.0)
@@ -479,6 +489,8 @@ def _facade_twins(path: str, device, n: int):
 
         return _twins(make, step, n)
     frames, imu = orbit_frames(2, n, H, W, device)
+    if path == "thermal":
+        frames = _thermal(frames[:, 0], device)[:, None]
     photo = dict(n_obs=16, spatial=True, cell_px=20, spatial_every=3)
     words = _words(device) if path == "pair" else None
 
@@ -504,7 +516,7 @@ def test_compiled_facades_equal_eager_on_the_cpu(path):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("path", ["match", "image", "pair"])
+@pytest.mark.parametrize("path", ["match", "image", "pair", "thermal"])
 def test_compiled_facades_equal_eager_bit_for_bit(cuda, path):
     vs = _facade_twins(path, cuda, 10 if path == "match" else 8)
     assert all(p.graphs.captured >= 1 for v in vs for p in v.programs)

@@ -5,8 +5,7 @@ float64 ones, with no synchronizing operation inside a round.
 
 Tests marked ``gpu`` need a CUDA card and skip without one; they run on the
 card with ``python -m pytest --noconftest -m gpu tests/test_torch_kernels.py``
-(``--noconftest``: the suite's conftest imports JAX, which the card's machine
-does not have; nothing here imports it). The CPU tests check the dispatch
+(``--noconftest``: nothing here needs the suite's JAX set-up). The CPU tests check the dispatch
 rule: a CPU tensor goes to the plain version and leaves the launch counter
 as it was, and the compass-tap rejection rule K1 relies on.
 """
@@ -75,7 +74,8 @@ def test_lk_cpu_tensor_uses_plain_version():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(3, 77, 133), (2, 120, 160)])
+# odd sizes, then the image fleets' two detection levels at 16 agents
+@pytest.mark.parametrize("shape", [(3, 77, 133), (2, 120, 160), (16, 480, 640), (16, 240, 320)])
 @pytest.mark.parametrize("nms", [True, False])
 def test_fast_kernel_matches_plain_exactly(cuda, shape, nms):
     rng = np.random.default_rng(2)
@@ -217,6 +217,50 @@ def test_lk_kernel_matches_plain(cuda, half_win):
     assert st["n_both_ok"] > 0
 
 
+def _fleet_levels(device, half_win: int) -> list:
+    """K2's inputs at the image fleet's size (16 agents, 480x640 orbit
+    frames), level by level, coarsest first: the slots the tracker fills on
+    frame 0 (its detected corners, 200 an agent), tracked into frame 1, each
+    level's guess from the plain version's result on the coarser level.
+    Returns [(args, the plain version's (flow, ok))]."""
+    from x_multi_agent_torch.utils.bench import orbit_frames
+    from x_multi_agent_torch.vision import tracker
+    from x_multi_agent_torch.vision.image import build_pyramid
+
+    a, h, w = 16, 480, 640
+    tp = configs.flagship_tracker(200)
+    frames, _ = orbit_frames(a, 2, h, w, device)
+    st, _ = tracker.track_frame_batch(tp, configs.flagship_camera(h, w),
+                                      tracker.TrackerState.zero(tp, a, h, w, device=device),
+                                      frames[0])
+    pyr0, pyr1 = (build_pyramid(f, tp.lk_max_level) for f in frames)
+    out, flow = [], torch.zeros_like(st.pts)
+    for lvl in range(len(pyr0) - 1, -1, -1):
+        dx, dy = scharr_gradients(pyr0[lvl])
+        flow = (flow * 2.0 if lvl < len(pyr0) - 1 else flow).contiguous()
+        args = (pyr0[lvl].contiguous(), pyr1[lvl].contiguous(), dx.contiguous(),
+                dy.contiguous(), (st.pts / 2.0**lvl).contiguous(), flow, half_win, tp.lk_iters,
+                tp.min_eig_thr)
+        out.append((args, lk._track_level(*args)))
+        flow = out[-1][1][0]
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("half_win", [10, 15])
+def test_lk_kernel_matches_plain_at_the_image_fleet(cuda, half_win):
+    """K2 on the image fleet's three pyramid levels (:func:`_fleet_levels`)
+    under :func:`test_lk_kernel_matches_plain`'s gate, at the flagship
+    tracker's window (half_win 10) and the largest (15)."""
+    for args, (f_ref, ok_ref) in _fleet_levels(cuda, half_win):
+        flow, ok = lk.track_level(*args)
+        margin = lk.gate_margin(*args[2:5], half_win, args[8])
+        st = lk.level_agreement(f_ref, ok_ref, flow, ok, margin)
+        assert st["ok_agree"] >= 0.995 and st["max_disagree_margin"] <= 1e-3, st
+        assert st["max_flow_err"] <= 2e-2 and st["share_within_1e-3"] >= 0.99, st
+        assert st["n_both_ok"] > 0, st
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("half_win", [10, 15])
 def test_lk_kernel_edge_band_matches_plain(cuda, half_win):
@@ -249,6 +293,23 @@ def test_lk_kernel_edge_band_matches_plain(cuda, half_win):
     assert st["n_both_ok"] >= 64, st
     both = ok & ok_ref & stable
     assert float(torch.linalg.norm(flow.double() - flow64, dim=-1)[both].max()) <= 2e-2
+
+
+@pytest.mark.gpu
+def test_kernels_find_nothing_on_a_black_frame(cuda):
+    """A black frame (a camera outage): K1 scores no pixel, K2 tracks no
+    feature and gives finite flows, as their plain versions do."""
+    imgs = torch.zeros((1, 480, 640), device=cuda)
+    score = fast.fast_score_nms(imgs, 12.0)
+    assert float(score.abs().max()) == 0.0
+    dx, dy = scharr_gradients(imgs)
+    pts = torch.from_numpy(np.random.default_rng(6).uniform(
+        [20, 20], [620, 460], size=(1, 200, 2)).astype(np.float32)).to(cuda)
+    args = (imgs, imgs, dx, dy, pts, torch.zeros_like(pts), 10, 10, 1e-4)
+    flow, ok = lk.track_level(*args)
+    f_ref, ok_ref = lk._track_level(*args)
+    assert not bool(ok.any()) and not bool(ok_ref.any())
+    assert bool(torch.isfinite(flow).all())
 
 
 @pytest.mark.gpu

@@ -173,6 +173,18 @@ def test_dryrun_multichip_passes_its_checks():
     assert all(rec["applied"])
 
 
+@pytest.mark.gpu
+def test_dryrun_multichip_on_the_card():
+    """The same dry run with both gloo ranks on the card, its rounds
+    compiled."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rec = dryrun.dryrun_multichip(2, "gloo", 2, device="cuda", timeout_s=300.0)
+    assert all(rec["checks"].values()) and rec["agents"] == 4
+    assert rec["matches_fused"] > 0 and rec["desc_fused"] > 0
+    assert all(rec["applied"])
+
+
 def test_spawn_agents_stops_ranks_past_its_limit(tmp_path):
     """Ranks that do not finish within the limit are killed and the call
     raises, well before a collective's own timeout."""

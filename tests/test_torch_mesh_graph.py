@@ -19,8 +19,9 @@ the CPU (``mesh.spawn_agents``; the rank function lives in
   devices (``test_torch_mesh.py``'s inputs and tolerances), each called 3
   times on its own output, so the carry (the served bitmap included)
   threads through the calls;
-* on a card (``gpu``-marked, skipped here): at NCCL world size 1 each
-  compiled round one graph launch per call, no host sync, bit for bit
+* on a card (``gpu``-marked, skipped here): both rounds compiled against
+  their plain twins with 2 gloo ranks on the card; at NCCL world size 1
+  each compiled round one graph launch per call, no host sync, bit for bit
   against its plain twin.
 
 JAX is imported inside the tests that compare with it, so the card's
@@ -59,12 +60,13 @@ def four_agents(desc_inputs):
     return mesh_four_agents(desc_inputs)
 
 
-def _spawn(tmp_path, *args) -> list:
-    """``torch_mesh_ranks.twin_rounds_rank`` on 2 gloo ranks on the CPU."""
+def _spawn(tmp_path, *args, device="cpu") -> list:
+    """``torch_mesh_ranks.twin_rounds_rank`` on 2 gloo ranks, both on
+    ``device``."""
     from torch_mesh_ranks import twin_rounds_rank
 
     return tmesh.spawn_agents(twin_rounds_rank, 2, "gloo", f"file://{tmp_path}/init", args,
-                              180.0, device="cpu")
+                              180.0, device=device)
 
 
 def _port_ccfg(ccfg, **kw):
@@ -188,26 +190,14 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.gpu
-def test_nccl_compiled_rounds_are_one_graph_and_equal_plain_twins(cuda, tmp_path):
-    """At NCCL world size 1 on the card: 4 agents of the multi-process
-    demo's drive, 4 frames of the filter step and keyframe insert, then 3
-    calls of each compiled round and its plain twin from one start. Every
-    call bit for bit, one graph launch per compiled call after the first,
-    fewer than 10 kernel launch calls outside it, no host sync, the same
-    bytes shipped (none: one rank)."""
-    import dataclasses
-    import warnings
-
-    from torch.profiler import ProfilerActivity, profile
-
-    from x_multi_agent_torch import configs
+def _demo_state(params, device) -> tuple:
+    """4 agents of the multi-process demo's drive on ``device``, 4 frames of
+    the compiled filter step each followed by a keyframe insert: (fs,
+    slots, db, words), cloned."""
     from x_multi_agent_torch.parallel import multihost
     from x_multi_agent_torch.place_recognition import database as db_mod
-    from x_multi_agent_torch.utils.bench import launch_calls
 
-    params = configs.flagship_params(small=True)
-    fs, slots, frames, words = multihost.shared_drive(params, 4, 4, cuda)
+    fs, slots, frames, words = multihost.shared_drive(params, 4, 4, device)
     db_dims = db_mod.DbDims(n_keyframes=4, n_words=int(words.shape[0]), max_agents=4)
     db = db_mod.KeyframeDB.zero(db_dims, tcollab.extract_payload_desc(params, fs, slots))
     step = tmesh.agent_step_fn(params)
@@ -215,7 +205,52 @@ def test_nccl_compiled_rounds_are_one_graph_and_equal_plain_twins(cuda, tmp_path
         fs, slots, _ = step(fs, slots, *x)
         db = db_mod.add_keyframe(db_dims, db, tcollab.extract_payload_desc(params, fs, slots),
                                  words)
-    fs, slots, db = (tree.map_leaves(torch.clone, x) for x in (fs, slots, db))
+    return tuple(tree.map_leaves(torch.clone, x) for x in (fs, slots, db, words))
+
+
+@pytest.mark.gpu
+def test_gloo_compiled_rounds_on_the_card_equal_plain_twins(cuda, tmp_path):
+    """Both gloo ranks on the card (a graph per segment, each collective
+    staged through pinned host memory), 2 of :func:`_demo_state`'s agents
+    each: 3 calls of both compiled rounds and their plain twins from one
+    start (the descriptor round, then the full-map round on its result),
+    every leaf bit for bit, hits and fused matches, the same bytes
+    shipped."""
+    from x_multi_agent_torch import configs
+    from x_multi_agent_torch.parallel import multihost
+
+    params = configs.flagship_params(small=True)
+    fs, slots, db, words = (tree.map_leaves(lambda x: x.cpu(), x)
+                            for x in _demo_state(params, cuda))
+    ccfg = multihost.demo_ccfg(2)
+    got = _spawn(tmp_path, params, N_CALLS, fs, ccfg, ccfg, words, slots, db, device=cuda)[0]
+    for k in range(N_CALLS):
+        for key in ("desc", "full"):
+            assert _bitwise(got["compiled"][k][key], got["eager"][k][key]), f"call {k} {key}"
+    first = got["compiled"][0]
+    assert int(first["desc"][2].sum()) > 0 and int(first["desc"][3].sum()) > 0
+    assert int(first["full"][1].sum()) > 0
+    assert got["shipped"]["compiled"] == got["shipped"]["eager"]
+
+
+@pytest.mark.gpu
+def test_nccl_compiled_rounds_are_one_graph_and_equal_plain_twins(cuda, tmp_path):
+    """At NCCL world size 1 on the card: :func:`_demo_state`'s 4 agents,
+    then 3 calls of each compiled round and its plain twin from one start.
+    Every call bit for bit, one graph launch per compiled call after the
+    first, fewer than 10 kernel launch calls outside it, no host sync, the
+    same bytes shipped (none: one rank)."""
+    import dataclasses
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from x_multi_agent_torch import configs
+    from x_multi_agent_torch.parallel import multihost
+    from x_multi_agent_torch.utils.bench import launch_calls
+
+    params = configs.flagship_params(small=True)
+    fs, slots, db, words = _demo_state(params, cuda)
     mesh = tmesh.make_agent_mesh("nccl", f"file://{tmp_path}/nccl", 0, 1, cuda)
     try:
         ccfg = multihost.demo_ccfg(2)

@@ -10,6 +10,9 @@ frame count, the LUT's uint8 output) exactly. The spatial solve's constant
 direction is fixed only by its 1e-6 Tikhonov term, which scales rounding by
 ~1e6: its maps are compared centred at 1e-9 and their mean offset at the
 bound that term sets (see ``test_spatial_solve_matches_jax``).
+
+On a card (``gpu``-marked, skipped here): the thermal facades at 480x640,
+and their last calibration against the CPU's float64.
 """
 import jax
 import jax.numpy as jnp
@@ -261,7 +264,7 @@ def test_correct_image_inverts_gain():
 
 
 def thermal_frames(frames, seed=0):
-    """Rendered frames (n, h, w) degraded as the smoke degrades them
+    """Rendered frames (n, h, w) degraded as a thermal camera gives them
     (``scene.degrade_frames``): the per-frame gain drift a = 1 + 0.01 k,
     b = 0.002 k of the reference's thermal e2e test, the accuracy report's
     vignette 0.06 and noise 0.006; uint8 values, returned as float64."""
@@ -349,3 +352,137 @@ def test_facade_photometric_matches_jax(spatial):
     assert float(a - b) > 0 and abs(float(a) - 1.0) > 1e-3  # the gains moved
     if spatial:
         assert float(tv.photo.ps.abs().max()) > 0  # the map was solved
+
+
+# ---------------------------------------------------------------------------
+# on the card (``gpu``-marked, skipped here)
+# ---------------------------------------------------------------------------
+
+
+def _components(n: int, sid_hist, sid_cur, valid, seen) -> list:
+    """The connected components of the ``seen`` cells under the valid
+    rows' (sid_hist, sid_cur) edges: (n,) float64 indicator vectors."""
+    parent = list(range(n))
+
+    def root(i):
+        while parent[i] != i:
+            parent[i] = parent[parent[i]]
+            i = parent[i]
+        return i
+
+    v = valid.cpu().numpy()
+    for i, j in zip(sid_hist.cpu().numpy()[v], sid_cur.cpu().numpy()[v]):
+        parent[root(int(i))] = root(int(j))
+    seen = seen.cpu().numpy()
+    roots = sorted({root(i) for i in range(n) if seen[i]})
+    return [torch.tensor([float(seen[i] and root(i) == r) for i in range(n)], dtype=F64)
+            for r in roots]
+
+
+def _calibration_card_vs_cpu(frame_call, solve_call) -> dict:
+    """The last ``process_frame`` and spatial solve an eager facade ran on
+    the card (their arguments, and the solve's cells), again on the card
+    and on the CPU in float64 from the same inputs: |da|, |db|, and the
+    maps' largest difference once each connected component of the seen
+    cells takes its own fitted offset (the solve's Laplacian fixes a
+    component's constant only by its 1e-6 term, and the smoothing spreads
+    that offset unevenly, so centring does not remove it)."""
+    from x_multi_agent_torch.utils.tree import map_leaves
+
+    def cpu64(x):
+        x = x.cpu()
+        return x.double() if x.is_floating_point() else x
+
+    args, kwargs = frame_call
+    card = tcal.process_frame(*args, **kwargs)
+    cpu = tcal.process_frame(*[map_leaves(cpu64, a) for a in args], **kwargs)
+    out = {"da": abs(float(card[1]) - float(cpu[1])), "db": abs(float(card[2]) - float(cpu[2]))}
+    args, kwargs, cells = solve_call
+    ncx, ncy, sid_hist, sid_cur, rhs, valid = args
+    ref = tcal.estimate_spatial_parameters(*[map_leaves(cpu64, a) for a in args], **kwargs)
+    n = ncx * ncy
+    _, seen = tcal.solve_cell_offsets(n, sid_hist.cpu(), sid_cur.cpu(), cpu64(rhs), valid.cpu())
+    basis = torch.stack([tcal.gpr_smooth(c, seen, ncx, ncy, **kwargs).reshape(-1)
+                         for c in _components(n, sid_hist, sid_cur, valid, seen)], 1)
+    diff = (cells.double().cpu() - ref).reshape(-1, 1)
+    offsets = torch.linalg.lstsq(basis, diff).solution
+    out["map_err_per_component"] = float((diff - basis @ offsets).abs().max())
+    return out
+
+
+@pytest.mark.gpu
+def test_thermal_facades_on_the_card(monkeypatch):
+    """Agent 0's 480x640 orbit frames degraded as :func:`thermal_frames`
+    degrades them, through two facades on the card from the orbit's true
+    start, the health monitor on: global gains only (compiled) and with the
+    spatial map (40-px cells solved every 10 frames; eager, so that its
+    last ``process_frame`` and spatial solve are kept). Each applies >= 90 %
+    of its updates, never re-initializes, keeps a finite tail and finite
+    gains with a - b > 0 after every frame; the global facade's corrected
+    images of the last 10 frames lie closer to the clean render than the
+    raw ones; the spatial map is solved and finite. The kept calibration
+    against the CPU in float64 (:func:`_calibration_card_vs_cpu`): the gains
+    within 1e-4, the map within 1e-3 once each component takes its
+    offset."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from x_multi_agent_torch import configs
+    from x_multi_agent_torch.utils import scene
+    from x_multi_agent_torch.utils.tree import map_leaves
+    from x_multi_agent_torch.vio import vio as tvio
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, (h, w, n) = torch.device("cuda"), (480, 640, 30)
+    params = configs.flagship_params()
+    frames, (times, seqs, ws, accs) = scene.orbit_dataset(1, n, h, w, dev)
+    clean = frames[:, 0]
+    raw = torch.from_numpy(thermal_frames(clean.cpu().numpy())).to(dev, torch.uint8)
+    p0, v0, q0 = scene.orbit_start(1)
+    kept = {}
+    frame_fn, solve_fn = tcal.process_frame, tcal.estimate_spatial_parameters
+
+    def keep_frame(*args, **kwargs):
+        kept["frame"] = map_leaves(torch.clone, (args, kwargs))
+        return frame_fn(*args, **kwargs)
+
+    def keep_solve(*args, **kwargs):
+        out = solve_fn(*args, **kwargs)
+        kept["solve"] = map_leaves(torch.clone, (args, kwargs, out))
+        return out
+
+    vs = {}
+    for spatial in (False, True):
+        v = tvio.VIO(params, device=dev, compiled=not spatial)
+        v.init_at_time(0.0, p=p0[0], v=v0[0], q=q0[0])
+        v.setup_tracker(configs.flagship_tracker(params.cfg.tracks.n_matches),
+                        configs.flagship_camera(h, w), h, w)
+        v.enable_health_monitor()
+        v.enable_photometric(n_obs=80, spatial=spatial, cell_px=40, spatial_every=10, seed=5)
+        vs[spatial] = v
+    applied = dict.fromkeys(vs, 0)
+    gains = {key: [] for key in vs}  # before each frame: the gains it is corrected with
+    for k in range(n):
+        for spatial, v in vs.items():
+            v.process_imu_batch(*(x[k, 0].cpu().numpy() for x in (times, seqs, ws, accs)))
+            gains[spatial].append(v.photo.state.current().clone())
+            with monkeypatch.context() as mp:
+                if spatial:
+                    mp.setattr(tcal, "process_frame", keep_frame)
+                    mp.setattr(tcal, "estimate_spatial_parameters", keep_solve)
+                applied[spatial] += v.process_image_measurement(float(times[k, 0, -1]), k,
+                                                                raw[k])
+    for spatial, v in vs.items():
+        g = torch.stack(gains[spatial][1:] + [v.photo.state.current()]).double()
+        assert applied[spatial] >= 0.9 * n and v.n_reinits == 0, (spatial, applied)
+        assert bool(torch.isfinite(v.tail_state().p).all())
+        assert bool(torch.isfinite(g).all()) and bool((g[:, 0] - g[:, 1] > 0).all()), g
+    g = gains[False]
+    tail = range(n - 10, n)
+    err_corrected = sum(float((tcal.correct_image(raw[k], g[k][0], g[k][1]).double()
+                               - clean[k].double()).abs().mean()) for k in tail)
+    err_raw = sum(float((raw[k].double() - clean[k].double()).abs().mean()) for k in tail)
+    assert err_corrected < err_raw
+    ps = vs[True].photo.ps
+    assert bool((ps != 0).any()) and bool(torch.isfinite(ps).all())
+    cmp = _calibration_card_vs_cpu(kept["frame"], kept["solve"])
+    assert cmp["da"] <= 1e-4 and cmp["db"] <= 1e-4 and cmp["map_err_per_component"] <= 1e-3, cmp

@@ -7,7 +7,10 @@ tensors in float64. Integer, boolean and uint8 leaves (descriptor bytes,
 match indices, word ids, VLADs, served flags) must match exactly, float
 leaves within 1e-8 of each leaf's max. Descriptor bits are compared
 exactly wherever the comparison's margin |va - vb| exceeds 1e-9: below it
-a bit may flip between two correct float64 implementations.
+a bit may flip between two correct float64 implementations. On a card
+(``gpu``-marked, skipped here) the card's float32 descriptors are held so
+against the CPU's float64 ones wherever the margin exceeds float32's
+rounding of the samples (``MARGIN_F32``).
 """
 import struct
 
@@ -31,6 +34,9 @@ from x_multi_agent_torch.place_recognition import vlad as tvlad
 from x_multi_agent_torch.place_recognition import vocabulary as tvoc
 
 MARGIN = 1e-9
+# gray levels: float32 sample points near x = 640 round by ~4e-5 px, which
+# moves a sample of the smoothed image by ~2e-3 at its steepest
+MARGIN_F32 = 1e-2
 
 
 def _desc(rng, n):
@@ -153,6 +159,36 @@ def test_tracker_descriptor_branch_matches_jax():
     g, r = _bits(tm_.desc.numpy()), _bits(jm.desc)
     np.testing.assert_array_equal(g[sel & stable.all(-1)], r[sel & stable.all(-1)])
     assert sel.sum() > 20
+
+
+@pytest.mark.gpu
+def test_card_descriptors_match_cpu_float64():
+    """The image fleet's frame 0 (16 agents, 480x640) on the card in
+    float32, at the keypoints its tracker detects, against the CPU in
+    float64 on the same frame and keypoints: the same ``ok`` flags, every
+    bit whose margin exceeds ``MARGIN_F32`` equal, those at least 99 % of
+    the bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from x_multi_agent_torch import configs
+    from x_multi_agent_torch.utils import bench
+    from x_multi_agent_torch.vision import tracker as ttrk
+
+    dev, (a, h, w) = torch.device("cuda"), (16, 480, 640)
+    frames, _ = bench.orbit_frames(a, 1, h, w, dev)
+    img = frames[0]
+    tp = configs.flagship_tracker(200)
+    st, _ = ttrk.track_frame_batch(tp, configs.flagship_camera(h, w),
+                                   ttrk.TrackerState.zero(tp, a, h, w, device=dev), img)
+    valid = st.ids >= 0
+    card, ok = tdesc.compute(img, st.pts, valid)
+    args = (img.double().cpu(), st.pts.double().cpu())
+    cpu, ok_cpu = tdesc.compute(*args, valid.cpu())
+    assert torch.equal(ok.cpu(), ok_cpu) and int(ok_cpu.sum()) >= 100 * a
+    stable = tdesc.bit_margin(*args)[ok_cpu] > MARGIN_F32
+    bits_card, bits_cpu = (tdesc.unpack_bits(d.cpu())[ok_cpu] for d in (card, cpu))
+    assert torch.equal(bits_card[stable], bits_cpu[stable])
+    assert float(stable.double().mean()) >= 0.99
 
 
 # ---------------------------------------------------------------------------

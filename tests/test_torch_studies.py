@@ -649,3 +649,45 @@ def test_studies_default_to_the_card(env):
         td.run(td.parse_args(["--frames", "1", "--duration", str(DURATION)]), H, W)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         tg.run(frames=1, duration=DURATION, h=H, w=W)
+
+
+# ---------------------------------------------------------------------------
+# (h) on the card (``gpu``-marked, skipped here)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_studies_on_the_card(tmp_path, monkeypatch):
+    """The studies at 480x640 on the card, their datasets rendered into
+    ``tmp_path``: harsh recovery (preset harsh, the cheap IMU, 6 s, the
+    camera black over frames 15-39) re-initializes no agent with the health
+    monitor off and at least once with it on, every position finite; the
+    photometric ablation's three modes (3 s) keep every position finite;
+    the gate bisect (30 frames, the random vocabulary) finds a kNN match
+    and leaves every variant's covariance finite, symmetric and positive on
+    the position block; K1, K2 and the track rows launched."""
+    import math
+
+    from x_multi_agent_torch.vio.updates import track_rows
+    from x_multi_agent_torch.vision import fast, lk
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    monkeypatch.setattr(tar, "DATASET_ROOT", str(tmp_path))
+    dev, h, w, duration, frames = torch.device("cuda"), 480, 640, 6.0, 60
+    kernels = (fast.K1, lk.K2, track_rows.TRACK_ROWS)
+    before = [k.launches for k in kernels]
+    meta = th.ensure_harsh_dataset(0, duration, "harsh", cheap_imu=True, h=h, w=w, device=dev)
+    off, on = (th.run(meta, 0, health, frames, cheap_imu=True, outage=(15, 40), device=dev)
+               for health in (False, True))
+    assert off["n_reinits"] == 0 and on["n_reinits"] >= 1, (off, on)
+    assert math.isfinite(on["ate"]), on  # the RMS of the errors: finite iff every position is
+    ab = tp.main(["--duration", "3", "--frames", "30"], h=h, w=w, device=dev)
+    assert all(math.isfinite(ab[m]["ate"]) for m in ("off", "global", "spatial")), ab
+    g = tg.run(30, "random", duration, h, w, device=dev, kf_probe=False)
+    assert g["n_knn"] >= 1, g
+    for name, c in g["cov"].items():
+        assert c["finite"] and c["max_asym"] <= 1e-6 * c["max_abs"] and c["min_pos_eig"] > 0, name
+    n_k1, n_k2, n_rows = (k.launches - n for k, n in zip(kernels, before))
+    assert n_k1 >= 1 and n_k2 >= 3 * frames and n_rows >= 3, (n_k1, n_k2, n_rows)

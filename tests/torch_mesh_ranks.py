@@ -49,6 +49,7 @@ def twin_rounds_rank(mesh, params, n_calls, fs, ccfg=None, dccfg=None, words=Non
     sl = mesh.block(fs.cov.shape[0])
     blocks = [None if x is None else tree.map_leaves(lambda v: v[sl].to(mesh.device), x)
               for x in (fs, slots, db)]
+    words = None if words is None else words.to(mesh.device)
     found, out, shipped = {}, {}, {}
     for mode in ("compiled", "eager"):
         twin = dataclasses.replace(mesh, shipped={})

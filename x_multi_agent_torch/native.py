@@ -6,8 +6,7 @@ library with a plain C interface, loaded with ``ctypes``. The build happens
 at first use (never at import), into ``x_multi_agent_torch/_build/``, and is
 keyed by a hash of the sources and flags, so an edited kernel is rebuilt and
 an unchanged one is loaded as it is. A failed build raises with nvcc's
-stderr; there is no fallback. ``build_log`` keeps ptxas's report of each
-kernel's registers, shared memory and spills.
+stderr; there is no fallback.
 
 Each kernel's Python wrapper owns a :class:`Kernel`, which counts the
 wrapper's launches (a plain integer: the count a run reads to prove that its
@@ -21,7 +20,6 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
@@ -34,12 +32,10 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _lib = None
-build_seconds: float | None = None  # wall time of the last nvcc build (None: loaded as built)
-build_log = ""  # ptxas report of the last build
 
 
-def _sources(csrc: Path = CSRC):
-    return sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -53,31 +49,27 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def library_path(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
+def library_path() -> Path:
     h = hashlib.sha256()
-    for src in _sources(csrc):
+    for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return build_dir / f"libxmat_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libxmat_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
+def build() -> Path:
     """Compile ``csrc/*.cu`` into the hashed library (no-op when present):
-    one ``nvcc -c`` per source in parallel, then one link. ``csrc`` and
-    ``build_dir`` default to this package's (another checkout's sources can
-    be built beside them for a comparison)."""
-    global build_seconds, build_log
-    out = library_path(csrc, build_dir)
+    one ``nvcc -c`` per source in parallel, then one link."""
+    out = library_path()
     if out.exists():
         return out
-    build_dir.mkdir(parents=True, exist_ok=True)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     nvcc = _nvcc()
-    t0 = time.perf_counter()
     objs, procs = [], []
-    for src in sorted(csrc.glob("*.cu")):
-        obj = build_dir / f"{src.stem}.{os.getpid()}.o"
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{src.stem}.{os.getpid()}.o"
         cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
         objs.append(obj)
         procs.append((cmd, subprocess.Popen(
@@ -94,8 +86,6 @@ def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
         if rc != 0:
             raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{err}")
     os.replace(tmp, out)
-    build_seconds = time.perf_counter() - t0
-    build_log = "".join(err for _, err, _ in cmds)
     return out
 
 
@@ -145,10 +135,8 @@ class Kernel:
     function is ``<name>_kernel`` (a compiled program's replays add the
     launches of it that its graph holds: ``utils/graph.py``)."""
 
-    def __init__(self, name: str, source: str, replaces: str):
+    def __init__(self, name: str):
         self.name = name
-        self.source = source  # path in the repo
-        self.replaces = replaces  # file:line of the Pallas kernel it replaces
         self.launches = 0
         KERNELS.append(self)
 

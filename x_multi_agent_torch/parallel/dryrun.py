@@ -1,6 +1,6 @@
 """The multi-rank dry run (port of ``__graft_entry__.dryrun_multichip``) and
-the functions that run the sharded rounds on full agent stacks, for the tests
-and the card smoke.
+the functions that run the sharded rounds on full agent stacks, for the
+tests.
 
 Every function that runs inside a rank is defined here, at module level:
 ``mesh.spawn_agents`` children import it, and this module imports no JAX;

@@ -189,19 +189,24 @@ def solve_cell_offsets(n_cells: int, sid_hist, sid_cur, vec_b, valid):
     (``seen``, (n_cells,) bool).
 
     ``A^T A`` is a graph Laplacian with one constant direction per connected
-    component of the touched cells, fixed only by the 1e-6 term: in float32
-    (the card) rounding leaves each component a constant offset that float64
-    does not have (``chip_smoke.py`` compares the maps modulo those
-    directions). The solve skips the host-side error check (``solve_ex``)."""
+    component of the touched cells, fixed only by the 1e-6 term. The normal
+    equations are formed and solved in float64 whatever ``vec_b``'s dtype:
+    in float32 the term is lost beside a cell's row count (16 + 1e-6 rounds
+    to 16), the integer Laplacian is singular, and the card's LU met an
+    exact zero pivot (a map of NaN). Rounding still leaves each component
+    an offset the CPU's float64 does not have (``tests/
+    test_torch_photometric.py::test_thermal_facades_on_the_card`` compares
+    the card's maps with the CPU's modulo those directions). The solve
+    skips the host-side error check (``solve_ex``)."""
     dtype, dev = vec_b.dtype, vec_b.device
-    wrow = valid.to(dtype)
+    wrow = valid.to(torch.float64)
     cells = torch.arange(n_cells, device=dev)
-    onehot_p = (sid_cur[:, None] == cells).to(dtype)
-    onehot_m = (sid_hist[:, None] == cells).to(dtype)
+    onehot_p = (sid_cur[:, None] == cells).to(torch.float64)
+    onehot_m = (sid_hist[:, None] == cells).to(torch.float64)
     a_mat = (onehot_p - onehot_m) * wrow[:, None]  # (S, n)
-    ata = a_mat.T @ a_mat + 1e-6 * torch.eye(n_cells, dtype=dtype, device=dev)
-    atb = a_mat.T @ (vec_b * wrow)
-    x = torch.linalg.solve_ex(ata, atb[:, None])[0][:, 0]
+    ata = a_mat.T @ a_mat + 1e-6 * torch.eye(n_cells, dtype=torch.float64, device=dev)
+    atb = a_mat.T @ (vec_b.to(torch.float64) * wrow)
+    x = torch.linalg.solve_ex(ata, atb[:, None])[0][:, 0].to(dtype)
     return x, (onehot_p.sum(0) + onehot_m.sum(0)) > 0
 
 

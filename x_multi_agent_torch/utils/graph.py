@@ -56,7 +56,6 @@ import collections
 import ctypes
 import dataclasses
 import gc
-import time
 from typing import Callable
 
 import torch
@@ -164,16 +163,14 @@ def _graph_nodes(graph):
 
 
 class Graphs:
-    """The graphs of one program: one memory pool and one side stream, with
-    what their captures cost (for the card's report)."""
+    """The graphs of one program: one memory pool and one side stream, and
+    what their captures and replays counted."""
 
     def __init__(self, name: str):
         self.name = name
         self.pool = None
         self.stream = None
         self.captured = 0  # graphs captured on the card
-        self.capture_s = 0.0  # wall seconds of those captures (the eager first runs not included)
-        self.pool_bytes = 0  # torch.cuda.memory_reserved() growth over the captures: the pool
         self.replayed_nodes = 0  # device events the replays so far gave (None: not known)
         self.kernels_read = True  # every graph's kernel launches read from its nodes
 
@@ -234,8 +231,6 @@ class _Graph:
         # collect now, and not during the capture
         gc.collect()
         torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved()
-        t0 = time.perf_counter()
         before = [k.launches for k in native.KERNELS]
         g = torch.cuda.CUDAGraph(keep_graph=True)  # kept to read its nodes
         collecting = gc.isenabled()
@@ -268,8 +263,6 @@ class _Graph:
                     f"{[k.name for k in native.KERNELS]}, its capture counted {counted}")
         torch.cuda.synchronize()
         own.captured += 1
-        own.capture_s += time.perf_counter() - t0
-        own.pool_bytes += torch.cuda.memory_reserved() - reserved
         for o, f in zip(_tensors(out), _tensors(first)):
             o.copy_(f)
         self.graph, self.out = g, out

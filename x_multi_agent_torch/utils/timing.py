@@ -51,8 +51,7 @@ from .. import native
 CAPACITY = 1 << 20  # ring entries (16 MiB per device): 20x a 51-s window's stamps
 CALIBRATIONS = 256  # synchronized stamps per calibration (~10 ms); the narrowest is kept
 
-STAMP = native.Kernel("stamp", source="x_multi_agent_torch/csrc/stamp.cu",
-                      replaces="none: the recorder's device clock")
+STAMP = native.Kernel("stamp")
 
 _ON = False  # the recorder's one switch
 _clock = time.perf_counter_ns

@@ -32,23 +32,11 @@ from ...ops import linalg
 from ...utils.chi2 import chi2_gate, chi2_quantile_table
 from .common import feature_col, pose_att_col, pose_pos_col, scatter_block
 
-TRACK_ROWS = native.Kernel(
-    "track_rows",
-    source="x_multi_agent_torch/csrc/track_rows.cu",
-    replaces="none: the JAX package's filter has no Pallas kernel",
-)
+TRACK_ROWS = native.Kernel("track_rows")
 # the window tracks' reflections on hf and res, between torch's v^T hf products
-REFLECT = native.Kernel(
-    "track_reflect",
-    source="x_multi_agent_torch/csrc/track_rows.cu",
-    replaces="none: the JAX package's filter has no Pallas kernel",
-)
+REFLECT = native.Kernel("track_reflect")
 # each agent's P finite, the flag every track_rows launch reads: one before it
-COV_FINITE = native.Kernel(
-    "cov_finite",
-    source="x_multi_agent_torch/csrc/track_rows.cu",
-    replaces="none: the JAX package's filter has no Pallas kernel",
-)
+COV_FINITE = native.Kernel("cov_finite")
 
 MSCKF_CONFIDENCE = 0.95
 SLAM_CONFIDENCE = 0.90

@@ -24,11 +24,7 @@ CIRCLE = (
 )
 ARC = 9
 
-K1 = native.Kernel(
-    "fast_score_nms",
-    source="x_multi_agent_torch/csrc/fast.cu",
-    replaces="x_multi_agent_tpu/vision/pallas_fast.py:221",
-)
+K1 = native.Kernel("fast_score_nms")
 
 
 def fast_score(img: torch.Tensor, threshold: float) -> torch.Tensor:

@@ -23,11 +23,7 @@ import torch
 from .. import native
 from .image import scharr_gradients
 
-K2 = native.Kernel(
-    "lk_level",
-    source="x_multi_agent_torch/csrc/lk.cu",
-    replaces="x_multi_agent_tpu/vision/pallas_lk2.py:246",
-)
+K2 = native.Kernel("lk_level")
 
 
 def _interp_patch(p: torch.Tensor, fx, fy, w: int) -> torch.Tensor:
