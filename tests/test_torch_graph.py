@@ -455,23 +455,50 @@ def test_compiled_filter_step_equals_eager_bit_for_bit(cuda):
     assert comp.graphs.captured == 1
 
 
-def _frame_steps_in_turns(device, agents: int, h: int, w: int, n: int) -> dict:
-    """The image bench's frame step at ``agents`` agents at rest at the
-    origin on ``h`` x ``w`` orbit frames (the flagship dims):
-    ``CompiledFrameStep`` first captures its detection graph on frame 0 and
-    its keep graph on frame 1; then it and ``frame_step`` run ``n`` frames
-    from one start in turns. Per run and frame: every leaf of the state and
-    ``applied`` (cloned) and the K1 and K2 launches; the runs' last states;
-    the compiled step's graphs and how many it had captured before the
-    runs."""
+@pytest.mark.gpu
+@pytest.mark.parametrize("agents", [512, 1])
+def test_compiled_filter_step_equals_eager_at_the_bench_fleets(cuda, agents):
+    """The flagship filter step at the matches cells' fleets (512 agents,
+    and 1) on the bench's match inputs from its start: the compiled step
+    (one graph, captured on the first step) and the eager one from one
+    start, every leaf bit for bit after each of 8 steps, every covariance
+    finite, the last step's update applied on at least 95 % of the
+    agents."""
+    params = configs.flagship_params()
+    xs = tbench._per_step(tbench.match_inputs_stacked(params, agents, 8, np.random.default_rng(0),
+                                                      device=cuda))
+    comp = tmesh.agent_step_fn(params)
+    steps = [tbench.filter_step(params, s) for s in (tmesh.agent_step(params), comp)]
+    states = [tvio.init_at_time(params, 0.0, agents, cuda, v=np.asarray(tbench.SIM_V0))
+              for _ in steps]
+    for x in xs:
+        outs = [step(*st, *x) for step, st in zip(steps, states)]
+        for a, b in zip(*(tree.leaves(o) for o in outs)):
+            assert torch.equal(_bits(a), _bits(b))
+        states = [o[:2] for o in outs]
+    assert comp.graphs.captured == 1
+    assert all(bool(torch.isfinite(st[0].cov).all()) for st in states)
+    assert int(outs[1][2].sum()) >= 0.95 * agents
+
+
+@pytest.mark.gpu
+def test_compiled_frame_step_equals_eager_bit_for_bit(cuda):
+    """At the image bench's size (64 agents at rest at the origin, 480x640
+    orbit frames, the flagship dims) over 8 frames: ``CompiledFrameStep``
+    first captures its detection graph on frame 0 and its keep graph on
+    frame 1; then it and ``frame_step`` run from one start in turns. Every
+    leaf bit for bit after every frame, K1 and K2 launched alike (K1 at
+    least once, from a replayed graph), nothing captured after the first
+    two frames, every covariance finite."""
+    agents, h, w, n = 64, 480, 640, 8
     params = configs.flagship_params()
     tp = configs.flagship_tracker(params.cfg.tracks.n_matches)
     cam = configs.flagship_camera(h, w)
-    frames, imu = tbench.orbit_frames(agents, n, h, w, device)
+    frames, imu = tbench.orbit_frames(agents, n, h, w, cuda)
     imu = [x.to(params.tdtype) if x.is_floating_point() else x for x in imu]
     xs = [(frames[k], *(x[k] for x in imu)) for k in range(n)]
-    start = (ttrk.TrackerState.zero(tp, agents, h, w, device=device),
-             *tvio.init_at_time(params, 0.0, agents, device))
+    start = (ttrk.TrackerState.zero(tp, agents, h, w, device=cuda),
+             *tvio.init_at_time(params, 0.0, agents, cuda))
     comp = CompiledFrameStep(params, tp, cam)
     state = start
     for x in xs[:2]:
@@ -480,31 +507,23 @@ def _frame_steps_in_turns(device, agents: int, h: int, w: int, n: int) -> dict:
     runs = {"eager": lambda st, x: frame_step(params, tp, cam, *st, *x),
             "compiled": lambda st, x: comp(*st, *x)}
     states = dict.fromkeys(runs, start)
-    out = {mode: [] for mode in runs}
-    for x in xs:
+    k1_compiled = 0
+    for k, x in enumerate(xs):
+        out = {}
         for mode, run in runs.items():
             k1, k2 = fast.K1.launches, lk.K2.launches
             tstate, fs, slots, _, applied = run(states[mode], x)
             states[mode] = (tstate, fs, slots)
-            kept = tree.map_leaves(torch.clone, tuple(tree.leaves((tstate, fs, slots, applied))))
-            out[mode].append((kept, (fast.K1.launches - k1, lk.K2.launches - k2)))
-    return {**out, "states": states, "graphs": comp.graphs, "primed": primed}
-
-
-@pytest.mark.gpu
-def test_compiled_frame_step_equals_eager_bit_for_bit(cuda):
-    """At the image bench's size (64 agents, 480x640) over 8 frames: every
-    leaf bit for bit after every frame, K1 and K2 launched alike (K1 at
-    least once, from a replayed graph), nothing captured after the first
-    two frames, every covariance finite."""
-    out = _frame_steps_in_turns(cuda, 64, 480, 640, 8)
-    for k, ((got, n_got), (ref, n_ref)) in enumerate(zip(out["compiled"], out["eager"])):
+            out[mode] = (tree.leaves((tstate, fs, slots, applied)),
+                         (fast.K1.launches - k1, lk.K2.launches - k2))
+        (got, n_got), (ref, n_ref) = out["compiled"], out["eager"]
         assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, ref)), k
         assert n_got == n_ref and n_got[1] >= 3, (k, n_got, n_ref)
-    assert sum(n[0] for _, n in out["compiled"]) >= 1
-    assert sum(g.captured for g in out["graphs"]) == out["primed"]
-    assert all(g.kernels_read for g in out["graphs"])
-    assert all(bool(torch.isfinite(st[1].cov).all()) for st in out["states"].values())
+        k1_compiled += n_got[0]
+    assert k1_compiled >= 1
+    assert sum(g.captured for g in comp.graphs) == primed
+    assert all(g.kernels_read for g in comp.graphs)
+    assert all(bool(torch.isfinite(st[1].cov).all()) for st in states.values())
 
 
 @pytest.mark.gpu

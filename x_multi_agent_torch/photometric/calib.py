@@ -191,13 +191,11 @@ def solve_cell_offsets(n_cells: int, sid_hist, sid_cur, vec_b, valid):
     ``A^T A`` is a graph Laplacian with one constant direction per connected
     component of the touched cells, fixed only by the 1e-6 term. The normal
     equations are formed and solved in float64 whatever ``vec_b``'s dtype:
-    in float32 the term is lost beside a cell's row count (16 + 1e-6 rounds
-    to 16), the integer Laplacian is singular, and the card's LU met an
-    exact zero pivot (a map of NaN). Rounding still leaves each component
-    an offset the CPU's float64 does not have (``tests/
-    test_torch_photometric.py::test_thermal_facades_on_the_card`` compares
-    the card's maps with the CPU's modulo those directions). The solve
-    skips the host-side error check (``solve_ex``)."""
+    in float32 the term is lost beside a row count of 32 or more (32 +
+    1e-6 rounds to 32), the integer Laplacian is singular, and the card's
+    LU met an exact zero pivot (a map of NaN). A float32 solve is the
+    float64 one rounded; the reference solves in its working dtype. The
+    solve skips the host-side error check (``solve_ex``)."""
     dtype, dev = vec_b.dtype, vec_b.device
     wrow = valid.to(torch.float64)
     cells = torch.arange(n_cells, device=dev)
