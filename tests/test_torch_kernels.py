@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels (K1 FAST, K2 LK level, the filter's track
-rows) against their plain PyTorch versions, and the card's float32 collaborative rounds (the full-map
+"""The hand-written CUDA kernels (K1 FAST, K2 LK level, the tracker's
+pyramid levels, the filter's track rows) against their plain PyTorch versions, and the card's float32 collaborative rounds (the full-map
 round and the descriptor-driven request-response round) against the CPU's
 float64 ones, with no synchronizing operation inside a round.
 
@@ -29,7 +29,7 @@ from x_multi_agent_torch.vio import pipeline
 from x_multi_agent_torch.vio import track_manager as tm
 from x_multi_agent_torch.vio import vio
 from x_multi_agent_torch.vio.updates import msckf, msckf_slam, slam, track_rows
-from x_multi_agent_torch.vision import fast, lk
+from x_multi_agent_torch.vision import fast, image, lk
 from x_multi_agent_torch.vision.image import scharr_gradients
 
 
@@ -331,6 +331,105 @@ def test_kernels_reject_bad_operands(cuda):
     pts = torch.zeros((1, 4, 2), device=cuda)
     with pytest.raises(ValueError):
         lk.track_level(img, img, img, img[:, :, :16].contiguous(), pts, pts, 10, 10, 1e-4)
+
+
+def test_pyramids_cpu_tensors_use_plain_versions():
+    rng = np.random.default_rng(11)
+    prev, cur = (torch.from_numpy(rng.uniform(0, 255, size=(2, 37, 53)).astype(np.float32))
+                 for _ in range(2))
+    before = image.PYRAMID.launches
+    pyr_prev, pyr_cur, grads = image.pyramids(prev, cur, 3)
+    assert image.PYRAMID.launches == before
+    assert [tuple(x.shape[1:]) for x in pyr_cur] == [(37, 53), (19, 27), (10, 14), (5, 7)]
+    for got, ref in ((pyr_prev, image.build_pyramid(prev, 3)),
+                     (pyr_cur, image.build_pyramid(cur, 3))):
+        assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    for (dx, dy), lvl in zip(grads, pyr_prev, strict=True):
+        rdx, rdy = image.scharr_gradients(lvl)
+        assert torch.equal(dx, rdx) and torch.equal(dy, rdy)
+
+
+def test_lk_track_with_given_gradients_equals_its_own():
+    """``lk.track`` given the pyramids' gradients tracks as it does
+    computing them itself."""
+    rng = np.random.default_rng(12)
+    prev, cur = (torch.from_numpy(x) for x in _textured(rng, 2, 64, 80))
+    pyr_prev, pyr_cur, grads = image.pyramids(prev, cur, 2)
+    pts = torch.from_numpy(rng.uniform(12, 60, size=(2, 9, 2)).astype(np.float32))
+    valid = torch.ones((2, 9), dtype=torch.bool)
+    got = lk.track(pyr_prev, pyr_cur, pts, valid, grads=grads)
+    ref = lk.track(pyr_prev, pyr_cur, pts, valid)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]) and bool(got[1].any())
+
+
+@pytest.mark.gpu
+# the image fleets at 64, 16 and 1 agents, then odd sizes (edges, ceil halving)
+@pytest.mark.parametrize("shape,depth", [((64, 480, 640), 2), ((16, 480, 640), 2),
+                                         ((1, 480, 640), 2), ((3, 37, 53), 3), ((2, 7, 5), 3),
+                                         ((2, 7, 5), 0), ((1, 1, 1), 1)])
+def test_pyramid_kernel_matches_plain_exactly(cuda, shape, depth):
+    """Levels and gradients bit for bit the plain stencils' on the card, one
+    launch a level for both images."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    prev, cur = (torch.rand(shape, generator=g, device=cuda) * 255 for _ in range(2))
+    before = image.PYRAMID.launches
+    got = image.pyramids(prev, cur, depth)
+    torch.cuda.synchronize()
+    assert image.PYRAMID.launches == before + depth + 1
+    ref = image.plain_pyramids(prev, cur, depth)
+    for lv_got, lv_ref in zip(got[:2], ref[:2], strict=True):
+        assert len(lv_got) == depth + 1
+        assert all(torch.equal(a, b) for a, b in zip(lv_got, lv_ref, strict=True))
+    for (dx, dy), (rdx, rdy) in zip(got[2], ref[2], strict=True):
+        assert torch.equal(dx, rdx) and torch.equal(dy, rdy)
+
+
+@pytest.mark.gpu
+def test_pyramid_kernel_rejects_bad_operands(cuda):
+    img = torch.zeros((2, 32, 48), device=cuda)
+    with pytest.raises(ValueError):
+        image.pyramids(img.double(), img.double(), 2)
+    with pytest.raises(ValueError):
+        image.pyramids(img[:, :, ::2], img[:, :, ::2], 2)
+    with pytest.raises(ValueError):
+        image.pyramids(img, img[:1].contiguous(), 2)
+    with pytest.raises(ValueError):
+        image.pyramids(img[0], img[0], 2)
+
+
+@pytest.mark.gpu
+def test_compiled_tracker_equals_the_eager_plain_pyramids(cuda, monkeypatch):
+    """The tracker's compiled program, whose pyramids and gradients are the
+    kernel's (at most three launches a frame), against the eager tracker
+    with the plain pyramids on the card, from one start over 6 frames of 64
+    agents at 480x640: state and matches bit for bit after every frame."""
+    from x_multi_agent_torch.utils.bench import orbit_frames
+    from x_multi_agent_torch.vision import tracker
+
+    a, h, w, n = 64, 480, 640, 6
+    tp = configs.flagship_tracker(200)
+    cam = configs.flagship_camera(h, w)
+    frames, _ = orbit_frames(a, n, h, w, cuda)
+    prog = tracker.TrackerProgram(tp, cam)
+    kernel_state, plain_state = (tracker.TrackerState.zero(tp, a, h, w, device=cuda)
+                                 for _ in range(2))
+
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+    for k in range(n):
+        before = image.PYRAMID.launches
+        kernel_state, matches = prog(kernel_state, frames[k])
+        launched = image.PYRAMID.launches - before
+        got = [bits(x).clone() for x in tree.leaves((kernel_state, matches))]
+        with monkeypatch.context() as m:
+            m.setattr(image, "pyramids", image.plain_pyramids)
+            plain_state, ref_matches = tracker.track_frame_batch(tp, cam, plain_state, frames[k])
+        assert image.PYRAMID.launches == before + launched
+        ref = [bits(x) for x in tree.leaves((plain_state, ref_matches))]
+        assert launched == tp.lk_max_level + 1 <= 3, (k, launched)
+        assert all(torch.equal(x, y) for x, y in zip(got, ref, strict=True)), k
+    assert int(matches.valid.sum()) > 0
 
 
 @pytest.mark.gpu

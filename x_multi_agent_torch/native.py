@@ -124,6 +124,7 @@ _SIGNATURES = (
     ("xmat_track_rows", 19, 8, 0, 1),
     ("xmat_cov_finite", 2, 3, 0, 0),
     ("xmat_track_reflect", 5, 4, 0, 0),
+    ("xmat_pyramid_level", 6, 4, 0, 0),
 )
 
 

@@ -5,10 +5,21 @@ pyrDown = 5-tap Gaussian [1 4 6 4 1]/16 separable blur + 2x decimation with
 edge replication at the borders (the reference's choice; not OpenCV's
 REFLECT_101). Every function takes images with any leading batch dims
 (..., H, W).
+
+The tracker builds its two pyramids and the previous one's Scharr gradients
+through :func:`pyramids`: on CUDA tensors it launches the hand-written
+kernel ``csrc/pyramid.cu`` once per level; on CPU tensors it runs the plain
+versions, :func:`build_pyramid` and :func:`scharr_gradients`
+(:func:`plain_pyramids`). The two are equal bit for bit: the kernel rounds
+every product and sum as the plain version's full-frame ops do.
 """
 from __future__ import annotations
 
 import torch
+
+from .. import native
+
+PYRAMID = native.Kernel("pyramid_level")
 
 
 def _pad_edge(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
@@ -104,3 +115,38 @@ def scharr_gradients(img: torch.Tensor):
     dy = _sep_stencil(img, dk, gk)
     return dx, dy
 
+
+def plain_pyramids(prev: torch.Tensor, cur: torch.Tensor, depth: int):
+    """The plain version of :func:`pyramids`."""
+    pyr_prev = build_pyramid(prev, depth)
+    return pyr_prev, build_pyramid(cur, depth), [scharr_gradients(lvl) for lvl in pyr_prev]
+
+
+def pyramids(prev: torch.Tensor, cur: torch.Tensor, depth: int):
+    """The ``depth + 1``-level pyramids of two (A, H, W) image batches and
+    the Scharr gradients of each level of the first: (pyr_prev, pyr_cur,
+    [(dx, dy)] per level of pyr_prev), level 0 the inputs themselves.
+
+    CPU tensors: :func:`plain_pyramids`. CUDA tensors: the kernel
+    ``pyramid_level_kernel``, one launch per level for both images (float32,
+    contiguous, equal shapes), or raise."""
+    if not prev.is_cuda:
+        return plain_pyramids(prev, cur, depth)
+    native.check_cuda_tensor("prev", prev, torch.float32)
+    if prev.dim() != 3:
+        raise ValueError(f"prev: expected (A, H, W), got {tuple(prev.shape)}")
+    native.check_cuda_tensor("cur", cur, torch.float32, prev.shape)
+    pyr_prev, pyr_cur, grads = [prev], [cur], []
+    for lvl in range(depth + 1):
+        src_prev, src_cur = pyr_prev[-1], pyr_cur[-1]
+        a, h, w = src_prev.shape
+        dx, dy = torch.empty_like(src_prev), torch.empty_like(src_prev)
+        more = lvl < depth  # the next level too, of both images
+        if more:
+            pyr_prev.append(prev.new_empty((a, (h + 1) // 2, (w + 1) // 2)))
+            pyr_cur.append(torch.empty_like(pyr_prev[-1]))
+        nxt = (pyr_prev[-1].data_ptr(), pyr_cur[-1].data_ptr()) if more else (0, 0)
+        PYRAMID.launch("xmat_pyramid_level", src_prev.data_ptr(), src_cur.data_ptr(), *nxt,
+                       dx.data_ptr(), dy.data_ptr(), a, h, w, int(more))
+        grads.append((dx, dy))
+    return pyr_prev, pyr_cur, grads

@@ -16,7 +16,7 @@ the unpadded image instead of building padded copies.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -224,15 +224,19 @@ def track(
     n_iters: int = 10,
     min_eig_thr: float = 1e-4,
     eps: float = 0.01,
+    grads: Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Track points from the previous to the current pyramid.
 
-    Returns (pts_cur (A,K,2), ok (A,K)). Points out of bounds or failing the
-    min-eigenvalue gate are flagged."""
+    ``grads`` are the (dx, dy) Scharr gradients of each level of
+    ``pyr_prev`` (``image.pyramids`` builds them with the pyramids); when not
+    given they are computed here. Returns (pts_cur (A,K,2), ok (A,K)). Points
+    out of bounds or failing the min-eigenvalue gate are flagged."""
     n_levels = len(pyr_prev)
     flow = torch.zeros_like(pts_prev)
     ok = valid
-    grads = [scharr_gradients(lvl) for lvl in pyr_prev]
+    if grads is None:
+        grads = [scharr_gradients(lvl) for lvl in pyr_prev]
     for lvl in range(n_levels - 1, -1, -1):
         scale = 2.0**lvl
         pts_l = (pts_prev / scale).contiguous()

@@ -20,8 +20,7 @@ from ..utils import graph, timing
 from ..utils.tree import scatter_dump, take
 from ..vio.track_manager import Matches, stable_partition
 from . import camera as cam_mod
-from . import fast, lk
-from .image import build_pyramid
+from . import fast, image, lk
 
 
 class TrackerParams(NamedTuple):
@@ -117,16 +116,18 @@ def _suppress(params: TrackerParams, h: int, w: int, xy, score, level, valid,
     return xy, score, level, keep & ~torch.any(cross, dim=2)
 
 
-def _track_core(params, cam, state: TrackerState, imgs, pyr_prev, pyr_cur, ransac_idx,
+def _track_core(params, cam, state: TrackerState, imgs, pyr_prev, pyr_cur, grads, ransac_idx,
                 seed: int):
-    """LK + RANSAC + match construction (everything except detection).
-    Returns (matches, tracked, cur_pts)."""
+    """LK + RANSAC + match construction (everything except detection), from
+    the two pyramids and the previous one's gradients. Returns (matches,
+    tracked, cur_pts)."""
     a, f = state.ids.shape
     dtype = imgs.dtype
     live = state.ids >= 0
     cur_pts, ok = lk.track(
         pyr_prev, pyr_cur, state.pts, live & state.has_prev[:, None],
         half_win=params.win_half, n_iters=params.lk_iters, min_eig_thr=params.min_eig_thr,
+        grads=grads,
     )
     timing.stamp("ransac", imgs)
     if ransac_idx is None:
@@ -200,14 +201,14 @@ def _integrate(params, state: TrackerState, imgs, tracked, cur_pts, cand_xy, can
 
 def _track_segment(params: TrackerParams, cam, state: TrackerState, imgs, ransac_idx,
                    seed: int):
-    """Pyramids, LK (K2) and RANSAC: (matches, tracked, cur_pts, the current
-    pyramid, need_detect (A,), need_detect.any())."""
-    depth = params.lk_max_level
+    """Pyramids and gradients (one kernel launch a level on the card), LK
+    (K2) and RANSAC: (matches, tracked, cur_pts, the current pyramid,
+    need_detect (A,), need_detect.any())."""
     timing.stamp("flow", imgs)
-    pyr_prev = build_pyramid(state.prev_img, depth)
-    pyr_cur = build_pyramid(imgs, depth)
+    pyr_prev, pyr_cur, grads = image.pyramids(state.prev_img.contiguous(), imgs.contiguous(),
+                                              params.lk_max_level)
     matches, tracked, cur_pts = _track_core(
-        params, cam, state, imgs, pyr_prev, pyr_cur, ransac_idx, seed
+        params, cam, state, imgs, pyr_prev, pyr_cur, grads, ransac_idx, seed
     )
     need_detect = torch.sum(tracked, dim=1) < params.n_feat_min  # (A,)
     return matches, tracked, cur_pts, tuple(pyr_cur), need_detect, need_detect.any()
